@@ -28,6 +28,8 @@ BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
 
 SOURCES: Dict[str, Path] = {
     "fragment_gather": _KERNELS / "fragment_gather" / "csrc" / "fragment_gather.cu",
+    "flash_attention": _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
+    "mamba2_ssd": _KERNELS / "mamba2_ssd" / "csrc" / "mamba2_ssd.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,0 +1,47 @@
+"""Public wrapper: model-layout ``(B, S, H, hd)`` GQA flash attention.
+
+A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
+launches the kernel or raises.  The kernel reads the model layout directly
+and masks the ragged tail itself, so the reference wrapper's head moves and
+padding have no counterpart.  The kernel's tiles are fixed by the head
+group (``kernel.query_block``) and a 64-key tile; ``q_block`` and
+``k_block`` are accepted for signature parity with the reference and are
+only checked.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention"]
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, S, KV, hd)
+    v: torch.Tensor,  # (B, S, KV, hd)
+    *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    window: int = 0,
+    q_block: int = 512,
+    k_block: int = 512,
+) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"{H} query heads do not divide into {KV} KV heads")
+    if q_block <= 0 or k_block <= 0:
+        raise ValueError(f"block sizes must be positive, got {q_block}, {k_block}")
+    scale = hd**-0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
+    return flash_attention_call(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        scale=scale, causal=causal, window=window,
+    )

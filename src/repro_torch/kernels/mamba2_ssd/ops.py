@@ -1,0 +1,47 @@
+"""Public wrapper for the SSD kernel, model-layout compatible with
+``repro_torch.models.ssm.ssd_chunked`` (drop-in fast path).
+
+A CPU tensor takes the plain version (``ref.ssd_ref_chunked``); a CUDA
+tensor launches the kernel or raises.  The kernel masks a ragged last chunk
+itself (the final state equals the unpadded one), so the reference
+wrapper's ``dt = 0`` padding has no counterpart.  The kernel runs one head
+per block; ``head_block`` is accepted for signature parity with the
+reference and is only checked.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.mamba2_ssd.kernel import ssd_call
+from repro_torch.kernels.mamba2_ssd.ref import ssd_ref_chunked
+
+__all__ = ["ssd"]
+
+
+def ssd(
+    xh: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 256,
+    head_block: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, S, H, P = xh.shape
+    if chunk <= 0 or head_block <= 0:
+        raise ValueError(f"chunk and head_block must be positive, got {chunk}, {head_block}")
+    Q = min(chunk, S)
+    if xh.device.type == "cpu":
+        return ssd_ref_chunked(xh, dt, A, Bm, Cm, chunk=Q)
+    return ssd_call(
+        xh.contiguous(),
+        dt.float().contiguous(),
+        A.float().contiguous(),
+        Bm.contiguous(),
+        Cm.contiguous(),
+        chunk=Q,
+    )

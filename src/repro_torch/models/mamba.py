@@ -1,0 +1,171 @@
+"""Mamba2 (SSD) decoder stack — attention-free family, on torch tensors.
+
+The port of ``repro.models.mamba``: the layer-stacked parameters are looped
+over in Python in place of ``lax.scan``, and there is no rematerialisation
+(inference only).  The decode "cache" is the constant-size SSM state and
+conv tail per layer.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.ssm import mamba2_decode, mamba2_forward, mamba2_layer_param_shapes
+
+__all__ = [
+    "init_params",
+    "forward",
+    "init_decode_cache",
+    "prefill",
+    "decode_step",
+]
+
+Device = Union[None, str, torch.device]
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def normal(gen: torch.Generator, shape, fan_in: int, dtype, device) -> torch.Tensor:
+    """N(0, 1)·fan_in^-½ drawn in f32 on the generator's device, then cast
+    and moved: the reference's recipe, not its bits."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (t * fan_in**-0.5).to(dtype=dtype, device=device)
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device: Device = None) -> Dict[str, Any]:
+    """Random parameters keyed and shaped as the reference's.  ``device``
+    ``None`` means the CUDA card (raises without one)."""
+    device = resolve_device(device)
+    dt = _dtype(cfg)
+    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    layers: Dict[str, torch.Tensor] = {}
+    for name, s in mamba2_layer_param_shapes(cfg).items():
+        shape = (L,) + s
+        if name in ("ln", "norm", "D_skip"):
+            layers[name] = torch.ones(shape, dtype=dt, device=device)
+        elif name == "conv_b":
+            layers[name] = torch.zeros(shape, dtype=dt, device=device)
+        elif name == "A_log":
+            # A in [-1, -8): log-spaced decay rates (mamba2 default init)
+            a = torch.log(torch.linspace(1.0, 8.0, s[0], dtype=torch.float32, device=device))
+            layers[name] = a.expand(shape).contiguous()
+        elif name == "dt_bias":
+            layers[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+        elif name == "conv_w":
+            layers[name] = normal(gen, shape, cfg.conv_width, dt, device)
+        else:
+            layers[name] = normal(gen, shape, s[0], dt, device)
+    return {
+        "embed": normal(gen, (V, D), D, dt, device),
+        "layers": layers,
+        "final_norm": torch.ones((D,), dtype=dt, device=device),
+        "lm_head": normal(gen, (D, V), D, dt, device),
+    }
+
+
+def layer(layers: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s parameters out of the layer-stacked dict (views)."""
+    return {k: v[i] for k, v in layers.items()}
+
+
+def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+
+def _embed(cfg: ArchConfig, params, tokens, prefix_embeds) -> torch.Tensor:
+    x = params["embed"][tokens]  # a fresh tensor (advanced indexing copies)
+    if prefix_embeds is not None and cfg.prefix_len:
+        x[:, : prefix_embeds.shape[1]] = prefix_embeds.to(x.dtype)
+    return x
+
+
+def run_layers(cfg: ArchConfig, x: torch.Tensor, layers, start: int, stop: int):
+    """Mamba2 layers [start, stop) on the full sequence, pre-norm residual;
+    returns (x, [final ssm state], [conv tail]) per layer."""
+    ssm, conv = [], []
+    for i in range(start, stop):
+        lp = layer(layers, i)
+        out, ssm_state, conv_tail = mamba2_forward(cfg, rms_norm(x, lp["ln"], cfg.norm_eps), lp)
+        x = x + out
+        ssm.append(ssm_state)
+        conv.append(conv_tail)
+    return x, ssm, conv
+
+
+def decode_layers(cfg: ArchConfig, x: torch.Tensor, layers, cache, start: int, stop: int):
+    """Mamba2 layers [start, stop) for one token per sequence; their states
+    in ``cache["ssm"]`` and ``cache["conv"]`` are updated in place."""
+    for i in range(start, stop):
+        lp = layer(layers, i)
+        h = rms_norm(x, lp["ln"], cfg.norm_eps)
+        out, ssm_state, conv_state = mamba2_decode(cfg, h, lp, cache["ssm"][i], cache["conv"][i])
+        cache["ssm"][i].copy_(ssm_state)
+        cache["conv"][i].copy_(conv_state)
+        x = x + out
+    return x
+
+
+def forward(
+    cfg: ArchConfig,
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    prefix_embeds: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    x = _embed(cfg, params, tokens, prefix_embeds)
+    x, _, _ = run_layers(cfg, x, params["layers"], 0, cfg.num_layers)
+    return _logits(cfg, params, x)
+
+
+def init_decode_cache(
+    cfg: ArchConfig, batch: int, max_len: int, device: Device = None
+) -> Dict[str, Any]:
+    device = resolve_device(device)
+    L, H, P, N = cfg.num_layers, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "ssm": torch.zeros((L, batch, H, P, N), dtype=torch.float32, device=device),
+        "conv": torch.zeros((L, batch, cfg.conv_width - 1, conv_ch), dtype=_dtype(cfg), device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def prefill(
+    cfg: ArchConfig,
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    prefix_embeds: Optional[torch.Tensor] = None,
+    max_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    B, S = tokens.shape
+    x = _embed(cfg, params, tokens, prefix_embeds)
+    x, ssm_states, conv_tails = run_layers(cfg, x, params["layers"], 0, cfg.num_layers)
+    logits = _logits(cfg, params, x[:, -1:, :])
+    cache = {
+        "ssm": torch.stack(ssm_states),
+        "conv": torch.stack(conv_tails).to(_dtype(cfg)),
+        "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
+    }
+    return logits, cache
+
+
+def decode_step(
+    cfg: ArchConfig,
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    cache: Dict[str, Any],
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One token per sequence.  The cache's ``ssm`` and ``conv`` tensors are
+    updated in place (the reference donates them to jit) and returned in a
+    new dict with the advanced positions."""
+    x = params["embed"][tokens]  # (B,1,D)
+    x = decode_layers(cfg, x, params["layers"], cache, 0, cfg.num_layers)
+    logits = _logits(cfg, params, x)
+    return logits, {"ssm": cache["ssm"], "conv": cache["conv"], "pos": cache["pos"] + 1}

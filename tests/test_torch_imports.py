@@ -30,6 +30,9 @@ COPIES = [
     "analysis/errors.py",
     "analysis/module_scan.py",
     "analysis/walker.py",
+    "configs/__init__.py",
+    "configs/mamba2_780m.py",
+    "configs/zamba2_1_2b.py",
     "core/__init__.py",
     "core/baselines.py",
     "core/cache.py",
@@ -42,6 +45,7 @@ COPIES = [
     "lake/faults.py",
     "lake/fragments.py",
     "lake/s3sim.py",
+    "models/config.py",
     "obs/__init__.py",
     "obs/explain.py",
     "obs/metrics.py",
@@ -119,7 +123,9 @@ def test_copied_module_matches_reference(rel):
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from repro_torch.core.device import DeviceTier
+    from repro_torch.models import get_config, get_model
     from repro_torch.pipeline.executor import Workspace
+    from repro_torch.serve import ServeEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -130,6 +136,15 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         Workspace(str(tmp_path / "b"), device=True)
     assert DeviceTier(device="cpu").device == torch.device("cpu")
     assert Workspace(str(tmp_path / "c"), torch_device="cpu").torch_device.type == "cpu"
+
+    api = get_model(get_config("mamba2-780m").reduced())
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init_params(gen)
+    params = api.init_params(gen, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(api, params, slots=1, max_context=16)
+    assert ServeEngine(api, params, slots=1, max_context=16, device="cpu").device.type == "cpu"
 
 
 def test_torch_device_must_match_the_tier(tmp_path):

@@ -1,0 +1,146 @@
+"""The port's reduced zamba2-1.2b and mamba2-780m against the reference's,
+on the CPU.
+
+Weights are the reference's own (``init_params`` on a PRNG key) carried
+over by ``params_from_reference``; inputs come from numpy seeds.  Each
+model is held on forward logits, prefill logits with every cache leaf, and
+one decode step with every cache leaf, with the kernels on and off.  Flag
+on, the reference runs its Pallas kernels in interpret mode and the port
+its plain versions; the bar is the reference's own for the kernel path
+(2e-3, ``tests/test_kernels.py:205-208``).  Flag off, both run the same ops
+in the same order and the bar is 1e-4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.models.registry import get_config as ref_get_config
+from repro.models.registry import get_model as ref_get_model
+from repro_torch.models import get_config, get_model, list_archs, params_from_reference
+from repro_torch.models.registry import ARCH_IDS
+from torch_parity import reduced_pair, to_numpy as _np, to_torch as _t
+
+ARCHS = ["zamba2-1.2b", "mamba2-780m"]
+ONE_FOR_ONE = dict(rtol=1e-4, atol=1e-4)
+KERNEL_BAR = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return reduced_pair(request.param)
+
+
+def _both(rcfg, cfg, flag: bool):
+    return (
+        ref_get_model(dataclasses.replace(rcfg, use_pallas_kernels=flag)),
+        get_model(dataclasses.replace(cfg, use_pallas_kernels=flag)),
+    )
+
+
+# ------------------------------------------------------------------ configs
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_configs_equal_the_reference(arch_id):
+    assert dataclasses.asdict(get_config(arch_id)) == dataclasses.asdict(ref_get_config(arch_id))
+    assert get_config(arch_id).param_count() == ref_get_config(arch_id).param_count()
+
+
+def test_registry_lists_every_arch_and_refuses_unported_families():
+    assert list_archs() == ARCH_IDS
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("granite-3-2b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(dataclasses.replace(get_config("zamba2-1.2b"), family="dense"))
+    with pytest.raises(ModuleNotFoundError):
+        get_config("no-such-arch")
+
+
+# -------------------------------------------------------------- whole models
+@pytest.mark.parametrize("flag", [False, True])
+def test_forward_prefill_decode_match(arch, flag):
+    rcfg, rparams, cfg, params = arch
+    rapi, api = _both(rcfg, cfg, flag)
+    tol = KERNEL_BAR if flag else ONE_FOR_ONE
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 45)).astype(np.int32)
+
+    np.testing.assert_allclose(
+        _np(api.forward(params, _t(toks))), np.asarray(rapi.forward(rparams, jnp.asarray(toks))), **tol
+    )
+
+    lg_r, cache_r = rapi.prefill(rparams, jnp.asarray(toks[:1]), max_len=64)
+    lg, cache = api.prefill(params, _t(toks[:1]), max_len=64)
+    np.testing.assert_allclose(_np(lg), np.asarray(lg_r), **tol)
+    assert set(cache) == set(cache_r)
+    for name in cache_r:
+        assert cache[name].dtype == getattr(torch, str(cache_r[name].dtype)), name
+        np.testing.assert_allclose(_np(cache[name]), np.asarray(cache_r[name]), err_msg=name, **tol)
+
+    nxt = np.array([[7]], np.int32)
+    lg_r, new_r = rapi.decode_step(rparams, jnp.asarray(nxt), cache_r)
+    lg, new = api.decode_step(params, _t(nxt), cache)
+    np.testing.assert_allclose(_np(lg), np.asarray(lg_r), **tol)
+    for name in new_r:
+        np.testing.assert_allclose(_np(new[name]), np.asarray(new_r[name]), err_msg=name, **tol)
+
+
+def test_kernel_flag_on_matches_off_in_the_port(arch):
+    """The reference's bar for the model-integrated fast path."""
+    _, _, cfg, params = arch
+    toks = _t(np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    on = get_model(dataclasses.replace(cfg, use_pallas_kernels=True)).forward(params, toks)
+    off = get_model(dataclasses.replace(cfg, use_pallas_kernels=False)).forward(params, toks)
+    np.testing.assert_allclose(_np(on), _np(off), **KERNEL_BAR)
+
+
+def test_prefill_then_decode_equals_forward(arch):
+    """The port's own consistency: greedy continuation through the cache
+    reproduces the full forward pass's logits at every new position."""
+    _, _, cfg, params = arch
+    api = get_model(cfg)
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 20)).astype(np.int32)
+    full = _np(api.forward(params, _t(toks)))
+    lg, cache = api.prefill(params, _t(toks[:, :16]), max_len=32)
+    np.testing.assert_allclose(_np(lg)[0, -1], full[0, 15], **ONE_FOR_ONE)
+    for t in range(16, 20):
+        lg, cache = api.decode_step(params, _t(toks[:, t : t + 1]), cache)
+        np.testing.assert_allclose(_np(lg)[0, -1], full[0, t], **ONE_FOR_ONE)
+
+
+# ------------------------------------------------------------------ weights
+@pytest.mark.parametrize("arch_id", ARCHS)
+def test_init_params_has_the_reference_tree(arch_id):
+    """Keys, shapes and dtypes of a bf16 model equal the reference's; the
+    deterministic leaves equal it exactly."""
+    cfg = dataclasses.replace(get_config(arch_id).reduced(), dtype="bfloat16")
+    rcfg = dataclasses.replace(ref_get_config(arch_id).reduced(), dtype="bfloat16")
+    ref = jax.tree.map(np.asarray, ref_get_model(rcfg).init_params(jax.random.PRNGKey(0)))
+    got = get_model(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    flat_got = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_ref]
+    for (path, g), (_, r) in zip(flat_got, flat_ref):
+        assert tuple(g.shape) == r.shape and str(g.dtype) == f"torch.{r.dtype}", path
+        name = jax.tree_util.keystr(path)
+        if any(k in name for k in ("A_log", "dt_bias", "conv_b", "'ln", "norm", "D_skip")):
+            np.testing.assert_allclose(_np(g), r.astype(np.float32), rtol=1e-6, err_msg=name)
+    for name in ("in_proj", "out_proj"):
+        w = _np(got["layers"][name])
+        assert abs(w.std() * w.shape[1] ** 0.5 - 1) < 0.05  # N(0, 1/fan_in)
+
+
+def test_params_from_reference_carries_bf16_exactly():
+    cfg = dataclasses.replace(get_config("mamba2-780m").reduced(), dtype="bfloat16")
+    rcfg = dataclasses.replace(ref_get_config("mamba2-780m").reduced(), dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, ref_get_model(rcfg).init_params(jax.random.PRNGKey(1)))
+    params = params_from_reference(cfg, tree, "cpu")
+    assert params["embed"].dtype == torch.bfloat16 and params["layers"]["A_log"].dtype == torch.float32
+    np.testing.assert_array_equal(_np(params["embed"]), tree["embed"].astype(np.float32))
+    with pytest.raises(ValueError):
+        params_from_reference(cfg, {"embed": tree["embed"]}, "cpu")

@@ -12,6 +12,7 @@ import os
 from typing import Callable, Dict, Tuple
 
 import numpy as np
+import torch
 
 from benchmarks.workloads import write_events as ref_write_events
 from chip_smoke import write_events as port_write_events
@@ -28,6 +29,9 @@ __all__ = [
     "assert_same_bits",
     "assert_tables_bitwise",
     "ledger",
+    "reduced_pair",
+    "to_numpy",
+    "to_torch",
 ]
 
 # the per-run device ledger the port must reproduce exactly
@@ -98,3 +102,31 @@ class TwinLakes:
             assert_tables_bitwise(rres.outputs[name], pres.outputs[name], f"{what}:{name}")
         assert ledger(pres) == ledger(rres), what
         return rres, pres
+
+
+# ------------------------------------------------------------------ models
+def to_numpy(x) -> np.ndarray:
+    """A torch tensor (floats as f32) or a jax array as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy() if x.is_floating_point() else x.numpy()
+    return np.asarray(x)
+
+
+def to_torch(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def reduced_pair(arch_id: str, seed: int = 0):
+    """(reference config, reference params, port config, port params) of one
+    reduced arch: the reference's own weights from ``PRNGKey(seed)``,
+    carried over to the port on the CPU by ``params_from_reference``."""
+    import jax
+
+    from repro.models.registry import get_config as ref_get_config
+    from repro.models.registry import get_model as ref_get_model
+    from repro_torch.models import get_config, params_from_reference
+
+    rcfg = ref_get_config(arch_id).reduced()
+    rparams = ref_get_model(rcfg).init_params(jax.random.PRNGKey(seed))
+    cfg = get_config(arch_id).reduced()
+    return rcfg, rparams, cfg, params_from_reference(cfg, jax.tree.map(np.asarray, rparams), "cpu")
