@@ -1,15 +1,19 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-1. Builds the port's CUDA kernels from the sources in this checkout, one
-   ``nvcc`` per source, all started at once.
+1. Builds the port's four CUDA kernels from the sources in this checkout,
+   one ``nvcc`` per source, all started at once.
 2. Kernel phase: holds each kernel against its plain torch version on the
    card and times it at its main path's shapes beside its bound, its plain
    version and one PyTorch library call where there is one.
    ``fragment_gather`` is held bitwise for every bool/int/uint/float width
-   and for tiled and row-granular layouts; ``flash_attention`` and
-   ``mamba2_ssd`` at zamba2-1.2b's widths, prompt lengths 512, 1000 and
-   1536, in f32 and bf16, at the reference's tolerances (attention also
-   with grouped heads and a sliding window; SSD also against the
+   and for tiled and row-granular layouts.  ``dequant`` is held bitwise in
+   bf16 and f32 at kernel_bench's (2048, 1024), at a (2^24, 8) page, at
+   ragged shapes and on a view that is not 16-byte aligned, and the kernels
+   entry point (``repro_torch.kernels.dequant``, its only caller) decodes
+   the page.  ``flash_attention`` is held at zamba2-1.2b's, granite-3-2b's
+   (4 query heads a KV head) and mixtral-8x22b's heads (6 a KV head, head
+   dim 128, a 4096-position window) and ``mamba2_ssd`` at zamba2's widths,
+   in f32 and bf16, at the reference's tolerances (SSD also against the
    sequential recurrence).
 3. Pipeline path: a declarative ``@model`` pipeline over the lakehouse (the
    BENCH_8 project: a differential torch ``feats`` node and a full-window
@@ -18,16 +22,23 @@
    tier must match a workspace without it bitwise at every edit, and match a
    numpy computation of the same function; warm edits must upload at least
    5x fewer host->device bytes and go through the gather's tiled path.
-4. Consistency phase: zamba2-1.2b at full width and depth in f32; prefill
-   logits with the kernels on equal those with them off within 2e-3, and
-   greedy engine runs agree token for token up to a near-tie.
-5. Serve path: zamba2-1.2b at full width and depth in bf16 behind
-   ``ServeEngine(slots=4, max_context=2048)`` with the kernels on, eight
-   requests of 256-1536 prompt tokens and 32 new tokens each; every prefill
-   must launch ``flash_attention`` 7 times and ``mamba2_ssd`` 38 times.
+4. Consistency phase, f32, prefill logits with the kernels on against off
+   within 2e-3: zamba2-1.2b and granite-3-2b at full width and depth (greedy
+   engine runs agree token for token up to a near-tie), and mixtral-8x22b at
+   full width with its depth cut to 2 of 56 layers at S 8192 (a difference
+   beyond the bar must trace to a router near-tie).
+5. Serve paths, bf16, kernels on, each with its launch counts set to 0 just
+   before the run and read just after: zamba2-1.2b and granite-3-2b at full
+   width and depth behind ``ServeEngine(slots=4, max_context=2048)``, eight
+   requests of 256-1536 prompt tokens and 32 new tokens each (every prefill
+   launches ``flash_attention`` once per attention layer, ``mamba2_ssd``
+   once per Mamba2 layer); mixtral-8x22b (2 layers) behind
+   ``ServeEngine(slots=2, max_context=8192)``, two greedy prompts of 5000
+   and 6500 tokens past its window, 16 new tokens each, on a 4096-slot ring
+   cache.
 
 Prints the card, the build time, the kernel checks and timings, each edit's
-wall time, the serve run's timings and profile, a ``{"kernels": [...]}``
+wall time, the serve runs' timings and profiles, a ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``.  Any failure raises
 (non-zero exit).  Exits non-zero without a CUDA card.
 
@@ -37,6 +48,7 @@ Run from the repository root:  python3 chip_smoke.py [--rows N] [--frag N]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -326,6 +338,11 @@ def time_fragment_gather(total: int, frag: int) -> dict:
 
 # ---------------------------------------------- model kernels (serve path)
 ZAMBA2 = "zamba2-1.2b"
+GRANITE = "granite-3-2b"
+MIXTRAL = "mixtral-8x22b"
+# mixtral-8x22b's 56 layers hold 140.6 B parameters, four cards' worth; two
+# of them at full width (5.4 B, 21.6 GB in f32) exercise every layer kind
+MIXTRAL_LAYERS = 2
 PROMPT_LENS = (512, 1000, 1536)  # 1000 is a multiple of neither 64 nor 256
 # the reference's bars: tests/test_kernels.py:25-26 (attention), :97-99 (SSD)
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
@@ -340,19 +357,31 @@ SSD_H_TOL = (1e-3, 1e-3)
 SSD_Y_TOL_FULL_F32 = (1e-3, 1e-3)
 
 
-def _hold(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> float:
-    """``|got - want| <= atol + rtol * |want|`` everywhere (numpy's
-    allclose) and every value finite, or raise.  Returns the largest
-    absolute error."""
+def _closeness(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> Tuple[bool, float, float]:
+    """(within the bar and finite, largest absolute error, largest error
+    over its bar)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     worst = float((err / (atol + rtol * w.abs())).max())
-    max_err = float(err.max())
-    ok = bool(torch.isfinite(g).all()) and worst <= 1.0
+    return bool(torch.isfinite(g).all()) and worst <= 1.0, float(err.max()), worst
+
+
+def _compare(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> Tuple[bool, float]:
+    """Prints whether ``|got - want| <= atol + rtol * |want|`` everywhere
+    (numpy's allclose) with every value finite, and returns that and the
+    largest absolute error."""
+    ok, max_err, worst = _closeness(got, want, rtol, atol)
     print(
         f"  {what}: max |err| {max_err:.3e}, worst err/bar {worst:.3f} "
         f"(rtol {rtol}, atol {atol}) {'ok' if ok else 'FAIL'}"
     )
+    return ok, max_err
+
+
+def _hold(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> float:
+    """``_compare``, raising outside the bar.  Returns the largest absolute
+    error."""
+    ok, max_err = _compare(got, want, rtol, atol, what)
     if not ok:
         raise AssertionError(f"{what}: outside the bar")
     return max_err
@@ -365,68 +394,224 @@ def _bound_ms(flops: float, nbytes: float) -> Tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _attention_work(S: int, H: int, KV: int, hd: int, window: int) -> Tuple[float, float]:
+    """(flops, bytes) of causal attention over this run's shapes: QK^T and
+    PV over the keys each query sees (S(S+1)/2 causal, fewer under a
+    window), and q, k, v read and the output written once in bf16."""
+    seen = sum(min(q + 1, window) if window else q + 1 for q in range(S))
+    return 4.0 * hd * H * seen, 2.0 * S * hd * (2 * H + 2 * KV)
+
+
+# (label, H, KV, hd, S, window): zamba2-1.2b's shared block (and grouped or
+# windowed variants of it), granite-3-2b's layers (4 query heads a KV head)
+# and mixtral-8x22b's (6 a KV head, head dim 128, a 4096-position window
+# crossed by both lengths)
+ATTN_CASES = (
+    [("zamba2-1.2b", 32, 32, 64, S, 0) for S in PROMPT_LENS]
+    + [("zamba2 G4", 32, 8, 64, 1000, 0), ("zamba2 window 256", 32, 32, 64, 1536, 256),
+       ("zamba2 G4 window 256", 32, 8, 64, 1000, 256)]
+    + [("granite-3-2b", 32, 8, 64, S, 0) for S in PROMPT_LENS]
+    + [("mixtral-8x22b", 48, 8, 128, S, 4096) for S in (5000, 8192)]
+)
+
+
 def check_flash_attention() -> dict:
-    """The kernel against its plain version (materialised scores) at
-    zamba2's heads for each prompt length, f32 and bf16; also grouped heads
-    (KV 8, G 4) and a 256-position window.  Times it at the longest prompt
-    in bf16 beside its bound, the plain version and PyTorch's
-    ``scaled_dot_product_attention`` (which the port never calls)."""
+    """The kernel against its plain version (materialised scores) at each
+    case of ATTN_CASES, f32 and bf16, at the reference's bars.  Times it in
+    bf16 at zamba2's heads for each prompt length, at granite-3-2b's for
+    S 1536 (the entry of the kernels line: granite is the slice's main path)
+    and at mixtral-8x22b's for S 8192, beside its bound, the plain version
+    and PyTorch's ``scaled_dot_product_attention`` (which the port never
+    calls)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_call
-    from repro_torch.models import get_config
 
-    cfg = get_config(ZAMBA2)
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    scale = hd**-0.5
     gen = torch.Generator(device="cuda").manual_seed(2)
 
-    def inputs(S, kv, dtype):
+    def inputs(S, H, KV, hd, dtype):
         return [
             torch.randn((1, S, h, hd), generator=gen, device="cuda").to(dtype)
-            for h in (H, kv, kv)
+            for h in (H, KV, KV)
         ]
 
-    print(f"flash_attention vs plain at {cfg.name}'s heads (H {H}, KV {KV}, hd {hd}), B 1, causal")
-    cases = [(S, KV, 0) for S in PROMPT_LENS] + [(1000, 8, 0), (1536, KV, 256), (1000, 8, 256)]
-    err = 0.0
-    for S, kv, window in cases:
+    print("flash_attention vs plain, B 1, causal")
+    for label, H, KV, hd, S, window in ATTN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = inputs(S, kv, dtype)
-            got = flash_attention_call(q, k, v, scale=scale, causal=True, window=window)
-            want = attention_ref(q, k, v, scale=scale, causal=True, window=window)
-            e = _hold(got, want, *ATTN_TOL[dtype], f"S {S} KV {kv} window {window} {dtype}")
-            if (S, kv, window, dtype) == (PROMPT_LENS[-1], KV, 0, torch.bfloat16):
-                err = e
+            q, k, v = inputs(S, H, KV, hd, dtype)
+            kw = dict(scale=hd**-0.5, causal=True, window=window)
+            got = flash_attention_call(q, k, v, **kw)
+            want = attention_ref(q, k, v, **kw)
+            _hold(got, want, *ATTN_TOL[dtype], f"{label} (H {H}, KV {KV}, hd {hd}) S {S} window {window} {dtype}")
+            del q, k, v, got, want
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
-    for S in PROMPT_LENS:
-        q, k, v = inputs(S, KV, torch.bfloat16)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        ms = _time_ms(lambda: flash_attention_call(q, k, v, scale=scale, causal=True))
-        plain_ms = _time_ms(lambda: attention_ref(q, k, v, scale=scale, causal=True), launches=5)
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-        flops = 4.0 * hd * H * S * (S + 1) / 2  # QK^T and PV over the causal half
-        nbytes = 2.0 * S * hd * (2 * H + 2 * KV)  # q, k, v read, o written (bf16)
+    timed = [("zamba2-1.2b", 32, 32, 64, S, 0) for S in PROMPT_LENS]
+    timed += [("granite-3-2b", 32, 8, 64, 1536, 0), ("mixtral-8x22b", 48, 8, 128, 8192, 4096)]
+    for label, H, KV, hd, S, window in timed:
+        q, k, v = inputs(S, H, KV, hd, torch.bfloat16)
+        kw = dict(scale=hd**-0.5, causal=True, window=window)
+        got = flash_attention_call(q, k, v, **kw)
+        err = float((got.float() - attention_ref(q, k, v, **kw).float()).abs().max())
+        ms = _time_ms(lambda: flash_attention_call(q, k, v, **kw))
+        flops, nbytes = _attention_work(S, H, KV, hd, window)
         bound_ms, bound_by = _bound_ms(flops, nbytes)
+        plain_ms = library_ms = None
+        if not window:  # the materialised plain version and SDPA (no window argument)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            plain_ms = _time_ms(lambda: attention_ref(q, k, v, **kw), launches=5)
+            library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=KV != H))
         print(
-            f"flash_attention bf16 S {S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved"
+            f"flash_attention bf16 {label} (H {H}, KV {KV}, hd {hd}) S {S} window {window}: "
+            f"kernel {ms:.4f} ms, plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+            f"scaled_dot_product_attention {'not timed' if library_ms is None else f'{library_ms:.4f} ms'}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved"
         )
-    return {  # the longest prompt's
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:121",
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }
+        if label == "granite-3-2b":
+            entry = {
+                "name": "flash_attention",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:121",
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+                "shape": f"q (1, {S}, {H}, {hd}), k/v (1, {S}, {KV}, {hd}) bf16, causal",
+            }
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return entry
+
+
+DEQUANT_PAGE = (ROWS, 8)  # one month of the events table as an 8-column int8 page
+DEQUANT_SHAPES = [(2048, 1024), DEQUANT_PAGE, (100, 70), (1, 5), (257, 1029)]
+
+
+def _dequant_inputs(R: int, C: int, gen: torch.Generator):
+    """int8 values over the whole range and scales in [0.001, 2), as the
+    reference's tests draw them."""
+    x = torch.randint(-128, 128, (R, C), dtype=torch.int8, generator=gen, device="cuda")
+    scale = torch.rand((C,), generator=gen, device="cuda") * 1.999 + 0.001
+    return x, scale
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+        b.view(torch.int16 if b.element_size() == 2 else torch.int32),
+    )
+
+
+def _device_kernels(fn) -> Tuple[int, float]:
+    """The device kernels one call of ``fn`` launches and their device time
+    in ms, from the profiler (0 kernels where it sees no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    return sum(e.count for e in ops), sum(_device_us(e) for e in ops) / 1e3
+
+
+def check_dequant() -> dict:
+    """The kernel against its plain version on the card, bitwise, at every
+    shape of DEQUANT_SHAPES and on a view whose data is not 16-byte aligned,
+    for bf16 and f32.  Then the kernels entry point (``repro_torch.kernels
+    .dequant``, the only caller the system has) decodes the page in both
+    dtypes with the launch count set to 0 just before and read just after.
+    Times the kernel at kernel_bench's shape and at the page beside its
+    bound, its plain version and ``torch.mul(x, scale, out=)``, one
+    TensorIterator pass that computes in f32 and rounds on the store."""
+    import repro_torch.kernels as kernels
+    from repro_torch.kernels.dequant import dequant_ref
+    from repro_torch.kernels.dequant import kernel as dq_kernel
+    from repro_torch.kernels.dequant.kernel import dequant_call
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dtypes = (torch.bfloat16, torch.float32)
+    for R, C in DEQUANT_SHAPES:
+        x, scale = _dequant_inputs(R, C, gen)
+        flat = torch.empty(R * C + 3, dtype=torch.int8, device="cuda")
+        view = flat[3:].view(R, C)
+        view.copy_(x)
+        if view.data_ptr() % 16 == 0:
+            raise AssertionError("the offset view is aligned")
+        for dt in dtypes:
+            want = dequant_ref(x, scale, out_dtype=dt)
+            for name, src in (("aligned", x), ("offset view", view)):
+                if not _same_bits(dequant_call(src, scale, out_dtype=dt), want):
+                    raise AssertionError(f"dequant != plain at ({R}, {C}) {dt} {name}")
+        del x, scale, flat, view, want
+    torch.cuda.synchronize()
+    print(f"dequant bitwise == plain: {DEQUANT_SHAPES} x {[str(d) for d in dtypes]} x aligned/offset view")
+
+    x, scale = _dequant_inputs(*DEQUANT_PAGE, gen)
+    dq_kernel.launches = 0
+    outs = {dt: kernels.dequant(x, scale, out_dtype=dt) for dt in dtypes}
+    torch.cuda.synchronize()
+    launches = dq_kernel.launches
+    for dt, out in outs.items():
+        if not _same_bits(out, dequant_ref(x, scale, out_dtype=dt)):
+            raise AssertionError(f"kernels.dequant != plain on the page, {dt}")
+    if launches != len(dtypes):
+        raise AssertionError(f"kernels.dequant launched the kernel {launches} times for {len(dtypes)} calls")
+    print(f"kernels entry point: dequant of the {DEQUANT_PAGE} page in {len(dtypes)} dtypes, {launches} launches")
+    del outs, x, scale
+
+    for R, C in [(2048, 1024), DEQUANT_PAGE]:
+        x, scale = _dequant_inputs(R, C, gen)
+        for dt in dtypes:
+            out = torch.empty((R, C), dtype=dt, device="cuda")
+            library = lambda: torch.mul(x, scale, out=out)  # noqa: E731
+            library()
+            same = _same_bits(out, dequant_ref(x, scale, out_dtype=dt))
+            n, library_device_ms = _device_kernels(library)
+            _, kernel_device_ms = _device_kernels(lambda: dequant_call(x, scale, out_dtype=dt))
+            ms = _time_ms(lambda: dequant_call(x, scale, out_dtype=dt))
+            plain_ms = _time_ms(lambda: dequant_ref(x, scale, out_dtype=dt))
+            # "none" only when the call is more than one kernel; a profiler
+            # that saw no kernel at all leaves the count unknown, not zero
+            library_ms = _time_ms(library) if n <= 1 else None
+            nbytes = R * C * (1 + out.element_size()) + 4 * C
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3  # one multiply a value: bytes bound it
+            print(
+                f"dequant ({R}, {C}) int8 -> {dt}: kernel {ms:.4f} ms (device time alone "
+                f"{kernel_device_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.mul(out=) "
+                f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} "
+                f"({n or 'no'} device kernels a call seen by the profiler, "
+                f"device time alone {library_device_ms:.4f} ms, bitwise {'==' if same else '!='} plain), "
+                f"bound {bound_ms:.4f} ms (bytes: {nbytes}); {nbytes / ms / 1e6:.1f} GB/s achieved"
+            )
+            if (R, C) == DEQUANT_PAGE and dt == torch.bfloat16:
+                entry = {
+                    "name": "dequant",
+                    "route": "cuda",
+                    "source": "src/repro_torch/kernels/dequant/csrc/dequant.cu",
+                    "replaces": "src/repro/kernels/dequant/kernel.py:33",
+                    "launches": launches,
+                    "max_abs_err": 0.0,
+                    "ms": ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": "bytes",
+                    "library_ms": library_ms,
+                    "note": "no path of the system calls dequant: launches are those of its "
+                            "entry point, repro_torch.kernels.dequant, on the page in bf16 and f32",
+                }
+            del out
+        del x, scale
+    torch.cuda.empty_cache()
+    return entry
 
 
 def _ssd_inputs(S, H, P, N, dtype, gen):
@@ -690,118 +875,297 @@ def _prompts(rng: np.random.Generator, lengths, vocab: int) -> List[np.ndarray]:
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lengths]
 
 
-def consistency_phase() -> None:
-    """zamba2-1.2b at full width and depth in f32: prefill logits with the
-    kernels on equal those with them off within 2e-3 (the reference's bar,
-    tests/test_kernels.py:205-208), and greedy engine runs give the same
-    tokens up to the first step whose kernels-off top-2 logit margin is
-    under 1e-3."""
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def model_config(arch: str, *, dtype: str, kernels: bool, layers: Optional[int] = None):
+    """The arch's published config in ``dtype``, kernels on or off, and its
+    depth cut to ``layers`` where given; widths are never changed."""
     import dataclasses
 
-    from repro_torch.models import get_config, get_model
+    from repro_torch.models import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, dtype=dtype, use_pallas_kernels=kernels, num_layers=layers or cfg.num_layers
+    )
+
+
+def _depth(cfg) -> str:
+    from repro_torch.models import get_config
+
+    full = get_config(cfg.name)
+    width = "full width" if cfg.d_model == full.d_model else f"reduced width (d_model {cfg.d_model})"
+    if cfg.num_layers == full.num_layers:
+        return f"{width} and depth"
+    return f"{width}, depth cut to {cfg.num_layers} of {full.num_layers} layers"
+
+
+@contextlib.contextmanager
+def _router_logits():
+    """Records the f32 router logits of every MoE layer the model runs, in
+    order, as ``moe_apply`` computes them from its input."""
+    from repro_torch.models import transformer
+
+    records: List[torch.Tensor] = []
+    inner = transformer.moe_apply
+
+    def traced(cfg, x, w):
+        records.append(torch.einsum("bsd,de->bse", x.float(), w["router"].float()))
+        return inner(cfg, x, w)
+
+    transformer.moe_apply = traced
+    try:
+        yield records
+    finally:
+        transformer.moe_apply = inner
+
+
+NEAR_TIE = 1e-3  # a margin under this is a tie that rounding may break
+
+
+def _routing_flips(on: List[torch.Tensor], off: List[torch.Tensor], k: int) -> Optional[Tuple[int, float]]:
+    """Prints, per MoE layer, the tokens whose top-k experts differ between
+    the two sides and the kernels-off margin between the k-th and (k+1)-th
+    router logit.  Returns the first layer that differs and the largest
+    margin among its differing tokens, or None."""
+    first = None
+    for layer, (a, b) in enumerate(zip(on, off)):
+        ids_a = torch.topk(a, k, dim=-1).indices.sort(dim=-1).values
+        ids_b = torch.topk(b, k, dim=-1).indices.sort(dim=-1).values
+        flipped = (ids_a != ids_b).any(dim=-1)
+        top = torch.topk(b, k + 1, dim=-1).values
+        margin = top[..., k - 1] - top[..., k]
+        n = int(flipped.sum())
+        line = f"  MoE layer {layer}: {n} tokens routed differently; smallest top-{k} margin {float(margin.min()):.4e}"
+        if n:
+            worst = float(margin[flipped].max())
+            line += f"; largest margin among them {worst:.4e}"
+            if first is None:
+                first = (layer, worst)
+        print(line)
+    return first
+
+
+@contextlib.contextmanager
+def _attention_calls(cfg):
+    """Records the input, arguments and output of every full-sequence
+    attention call the model family makes, in order."""
+    from repro_torch.models.registry import _family_module
+
+    module = _family_module(cfg.family)
+    records: List[tuple] = []
+    inner = module.attention_train
+
+    def traced(cfg, x, *args, **kw):
+        out = inner(cfg, x, *args, **kw)
+        records.append((x, args, kw, out[0] if isinstance(out, tuple) else out))
+        return out
+
+    module.attention_train = traced
+    try:
+        yield records
+    finally:
+        module.attention_train = inner
+
+
+def _one_ulp(t: torch.Tensor, seed: int = 5) -> torch.Tensor:
+    """``t`` with every value moved one float step up or down at random:
+    the size of one rounding of the value."""
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device).to(t.dtype) * 2 - 1
+    return torch.nextafter(t, t + sign)
+
+
+def _attribute_to_the_chain(cfg, api_off, params, toks, calls_off, err: float) -> None:
+    """Logits of the kernels-on and -off stacks differ beyond the bar: pass
+    only when (1) every attention layer, fed the kernels-off stack's own
+    input, gives the kernel's output within the bar of the plain one, and
+    (2) the kernels-off stack alone moves its logits beyond the bar when
+    its embeddings move by one rounding step, so the stack, not an
+    attention layer, grows rounding-sized differences.  Raises otherwise."""
+    import dataclasses
+
+    from repro_torch.models.layers import attention_train
+
+    on_cfg = dataclasses.replace(cfg, use_pallas_kernels=True)
+    worst = (0.0, 0.0, -1)
+    for i, (x, args, kw, out_off) in enumerate(calls_off):
+        out_on = attention_train(on_cfg, x, *args, **kw)
+        out_on = out_on[0] if isinstance(out_on, tuple) else out_on
+        ok, max_err, ratio = _closeness(out_on, out_off, 2e-3, 2e-3)
+        if not ok:
+            raise AssertionError(f"attention layer {i}: kernel vs plain on one input, max |err| {max_err:.3e}")
+        worst = max(worst, (ratio, max_err, i))
+    print(
+        f"  each of {len(calls_off)} attention layers, kernel vs plain on the kernels-off stack's "
+        f"input: within the bar, worst err/bar {worst[0]:.3f} (max |err| {worst[1]:.3e}, layer {worst[2]})"
+    )
+    lg_off, _ = api_off.prefill(params, toks)
+    lg_ulp, _ = api_off.prefill(dict(params, embed=_one_ulp(params["embed"])), toks)
+    ok, max_err = _compare(lg_ulp, lg_off, 2e-3, 2e-3, "kernels-off logits, embeddings moved by one rounding step")
+    if ok:
+        raise AssertionError("the stack keeps rounding-sized differences inside the bar, the kernel's do not")
+    print(
+        f"  the kernels on/off difference ({err:.3e}) is the stack's growth of rounding differences "
+        f"(one rounding step of the embeddings: {max_err:.3e}); logits not held, greedy tokens not compared"
+    )
+
+
+def consistency_phase(cfg, lengths, *, greedy: bool, device="cuda", new_tokens: int = 16) -> None:
+    """``cfg`` in f32: prefill logits with the kernels on equal those with
+    them off within 2e-3 (the reference's bar, tests/test_kernels.py:205-208).
+    A difference beyond the bar must trace to a router near-tie in an MoE
+    model (``_routing_flips``) or, failing that, to the stack's own growth of
+    rounding differences with every attention layer held alone
+    (``_attribute_to_the_chain``).  With ``greedy``, and the logits held,
+    engine runs on both sides give the same tokens up to the first step
+    whose kernels-off top-2 logit margin is under 1e-3."""
+    import dataclasses
+
+    from repro_torch.models import get_model
     from repro_torch.serve import GenerateRequest, ServeEngine
 
-    new_tokens = 16
-    cfg = dataclasses.replace(get_config(ZAMBA2), dtype="float32")
     apis = {
         "on": get_model(dataclasses.replace(cfg, use_pallas_kernels=True)),
         "off": get_model(dataclasses.replace(cfg, use_pallas_kernels=False)),
     }
-    params = apis["on"].init_params(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    prompts = _prompts(np.random.default_rng(1), (512, 1000), cfg.vocab_size)
-    print(f"consistency: {cfg.name} f32, full width and depth ({cfg.param_count()} parameters)")
+    params = apis["on"].init_params(torch.Generator(device=device).manual_seed(0), device)
+    prompts = _prompts(np.random.default_rng(1), lengths, cfg.vocab_size)
+    print(f"consistency: {cfg.name} {cfg.dtype}, {_depth(cfg)} ({cfg.param_count()} parameters)")
+    held = True  # every prompt's logits within the bar, or traced to a router near-tie
     with torch.inference_mode():
         for p in prompts:
-            toks = torch.tensor(p, device="cuda")[None]
-            lg_on, _ = apis["on"].prefill(params, toks)
-            lg_off, _ = apis["off"].prefill(params, toks)
-            _hold(lg_on, lg_off, 2e-3, 2e-3, f"prefill logits, kernels on vs off, S {len(p)}")
+            toks = torch.tensor(p, device=device)[None]
+            with _router_logits() as routed_on:
+                lg_on, _ = apis["on"].prefill(params, toks)
+            with _router_logits() as routed_off, _attention_calls(cfg) as calls_off:
+                lg_off, _ = apis["off"].prefill(params, toks)
+            ok, err = _compare(lg_on, lg_off, 2e-3, 2e-3, f"prefill logits, kernels on vs off, S {len(p)}")
+            first = _routing_flips(routed_on, routed_off, cfg.experts_per_token) if cfg.num_experts else None
+            if not ok and first is not None:
+                if first[1] >= NEAR_TIE:
+                    raise AssertionError(f"routing differs in MoE layer {first[0]} at a margin of {first[1]:.3e}")
+                print(f"  the difference traces to router near-ties: first in MoE layer {first[0]}, "
+                      f"margins < {NEAR_TIE}")
+            elif not ok:
+                _attribute_to_the_chain(cfg, apis["off"], params, toks, calls_off, err)
+                held = False
+            del lg_on, lg_off, routed_on, routed_off, calls_off
 
-    tokens, margins = {}, []
+    if greedy and held:
+        tokens, margins = {}, []
 
-    def recording(api, record: bool):
-        def note(logits):
-            if record:
-                top = torch.topk(logits[0, -1].float(), 2).values
-                margins.append(float(top[0] - top[1]))
-            return logits
+        def recording(api, record: bool):
+            def note(logits):
+                if record:
+                    top = torch.topk(logits[0, -1].float(), 2).values
+                    margins.append(float(top[0] - top[1]))
+                return logits
 
-        def prefill(params, tokens, prefix_embeds=None, max_len=None):
-            lg, cache = api.prefill(params, tokens, prefix_embeds, max_len)
-            return note(lg), cache
+            def prefill(params, tokens, prefix_embeds=None, max_len=None):
+                lg, cache = api.prefill(params, tokens, prefix_embeds, max_len)
+                return note(lg), cache
 
-        def decode_step(params, tokens, cache):
-            lg, cache = api.decode_step(params, tokens, cache)
-            return note(lg), cache
+            def decode_step(params, tokens, cache):
+                lg, cache = api.decode_step(params, tokens, cache)
+                return note(lg), cache
 
-        return dataclasses.replace(api, prefill=prefill, decode_step=decode_step)
+            return dataclasses.replace(api, prefill=prefill, decode_step=decode_step)
 
-    for name, api in apis.items():
-        # one slot: each logits row belongs to the one active request, in order
-        eng = ServeEngine(recording(api, name == "off"), params, slots=1, max_context=2048)
-        rids = [eng.submit(GenerateRequest(prompt=p, max_new_tokens=new_tokens)) for p in prompts]
-        res = eng.run_until_drained()
-        tokens[name] = [res[r].tokens.tolist() for r in rids]
-    for i, p in enumerate(prompts):
-        on, off = tokens["on"][i], tokens["off"][i]
-        m = margins[i * new_tokens : (i + 1) * new_tokens]
-        first = next((k for k in range(new_tokens) if on[k] != off[k]), None)
-        if first is not None and m[first] >= 1e-3:
-            raise AssertionError(
-                f"greedy tokens differ at step {first} of prompt {len(p)} with a margin of {m[first]:.3e}"
+        for name, api in apis.items():
+            # one slot: each logits row belongs to the one active request, in order
+            eng = ServeEngine(recording(api, name == "off"), params, slots=1,
+                              max_context=max(2048, max(lengths) + new_tokens + 1), device=device)
+            rids = [eng.submit(GenerateRequest(prompt=p, max_new_tokens=new_tokens)) for p in prompts]
+            res = eng.run_until_drained()
+            tokens[name] = [res[r].tokens.tolist() for r in rids]
+            del eng
+        for i, p in enumerate(prompts):
+            on, off = tokens["on"][i], tokens["off"][i]
+            m = margins[i * new_tokens : (i + 1) * new_tokens]
+            first = next((k for k in range(new_tokens) if on[k] != off[k]), None)
+            if first is not None and m[first] >= NEAR_TIE:
+                raise AssertionError(
+                    f"greedy tokens differ at step {first} of prompt {len(p)} with a margin of {m[first]:.3e}"
+                )
+            print(
+                f"  greedy S {len(p)}: {new_tokens} tokens, kernels on == off "
+                + ("for all" if first is None else f"up to step {first}")
+                + f"; smallest kernels-off top-2 margin {min(m):.4e}"
+                + ("" if first is None else f", at the divergence {m[first]:.4e}")
             )
-        print(
-            f"  greedy S {len(p)}: {new_tokens} tokens, kernels on == off "
-            + ("for all" if first is None else f"up to step {first}")
-            + f"; smallest kernels-off top-2 margin {min(m):.4e}"
-            + ("" if first is None else f", at the divergence {m[first]:.4e}")
-        )
     del params
-    torch.cuda.empty_cache()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 SERVE_REQUESTS = 8
 SERVE_NEW_TOKENS = 32
 
 
-def serve_phase() -> Dict[str, int]:
-    """The slice's main path: zamba2-1.2b at full width and depth in bf16
-    behind ``ServeEngine(slots=4, max_context=2048)`` with the kernels on.
-    Eight requests of 256-1536 prompt tokens (from a seeded numpy
-    generator, one length not a multiple of 256), 32 new tokens each, half
-    greedy and half at temperature 0.8 with top-k 20.  The kernels' launch
-    counts are set to 0 just before the run and read just after; every
-    prefill must launch flash_attention once per shared-block application
-    and mamba2_ssd once per Mamba2 layer.  Returns the launch counts."""
+def serve_phase(
+    cfg,
+    *,
+    slots: int,
+    max_context: int,
+    lengths: Optional[List[int]] = None,
+    new_tokens: int = SERVE_NEW_TOKENS,
+    sampled: bool = True,
+    profile_len: int = 1000,
+    device="cuda",
+) -> Dict[str, int]:
+    """``cfg`` behind ``ServeEngine(slots, max_context)``.  Without
+    ``lengths``, eight requests of 256-1536 prompt tokens from a seeded
+    numpy generator (one length not a multiple of 256); ``sampled`` makes
+    every other request sample at temperature 0.8 with top-k 20, the rest
+    are greedy.  The kernels' launch counts are set to 0 just before the run
+    and read just after; every prefill must launch flash_attention once per
+    attention layer (per shared-block application in the hybrid) and
+    mamba2_ssd once per Mamba2 layer.  A sliding-window model must hold a
+    ring cache of the window.  Prints the timings, the peak device memory
+    and profiles of four decode steps and one prefill of ``profile_len``
+    tokens.  Returns the launch counts."""
     import dataclasses
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
-    from repro_torch.models import get_config, get_model
+    from repro_torch.models import get_model
     from repro_torch.models.hybrid import n_shared_applications
+    from repro_torch.models.transformer import cache_len
     from repro_torch.serve import GenerateRequest, ServeEngine
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = dataclasses.replace(get_config(ZAMBA2), use_pallas_kernels=True)
+    cuda = torch.device(device).type == "cuda"
     api = get_model(cfg)
-    params = api.init_params(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    torch.cuda.reset_peak_memory_stats()  # serving's peak, not the f32 draws of the init
+    params = api.init_params(torch.Generator(device=device).manual_seed(0), device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()  # serving's peak, not the f32 draws of the init
     rng = np.random.default_rng(0)
-    lengths = rng.integers(256, 1537, SERVE_REQUESTS)
-    if not (lengths % 256).any():
-        raise AssertionError("every prompt length is a multiple of 256")
+    if lengths is None:
+        lengths = rng.integers(256, 1537, SERVE_REQUESTS).tolist()
+        if not any(n % 256 for n in lengths):
+            raise AssertionError("every prompt length is a multiple of 256")
     prompts = _prompts(rng, lengths, cfg.vocab_size)
     requests = [
         GenerateRequest(
-            prompt=p, max_new_tokens=SERVE_NEW_TOKENS,
-            temperature=0.0 if i % 2 == 0 else 0.8, top_k=0 if i % 2 == 0 else 20,
+            prompt=p, max_new_tokens=new_tokens,
+            temperature=0.8 if sampled and i % 2 else 0.0, top_k=20 if sampled and i % 2 else 0,
         )
         for i, p in enumerate(prompts)
     ]
+    if cfg.family == "hybrid":
+        per_prefill = {"flash_attention": n_shared_applications(cfg), "mamba2_ssd": cfg.num_layers}
+    elif cfg.family == "ssm":
+        per_prefill = {"flash_attention": 0, "mamba2_ssd": cfg.num_layers}
+    else:
+        per_prefill = {"flash_attention": cfg.num_layers, "mamba2_ssd": 0}
     print(
-        f"serve: {cfg.name} {cfg.dtype}, full width and depth ({cfg.param_count()} parameters, "
-        f"{cfg.num_layers} Mamba2 layers, {n_shared_applications(cfg)} shared-attention "
-        f"applications), slots 4, max_context 2048, prompts {lengths.tolist()}"
+        f"serve: {cfg.name} {cfg.dtype}, {_depth(cfg)} ({cfg.param_count()} parameters), "
+        f"kernel launches a prefill {per_prefill}, slots {slots}, max_context {max_context}, "
+        f"prompts {lengths}, {new_tokens} new tokens each"
     )
 
     prefill_ms: List[Tuple[int, float]] = []
@@ -809,58 +1173,62 @@ def serve_phase() -> Dict[str, int]:
 
     def timed(api):
         def prefill(params, tokens, prefix_embeds=None, max_len=None):
-            torch.cuda.synchronize()
+            _sync(device)
             t = time.perf_counter()
             out = api.prefill(params, tokens, prefix_embeds, max_len)
-            torch.cuda.synchronize()
+            _sync(device)
             prefill_ms.append((tokens.shape[1], (time.perf_counter() - t) * 1e3))
             return out
 
         def decode_step(params, tokens, cache):
-            torch.cuda.synchronize()
+            _sync(device)
             t = time.perf_counter()
             out = api.decode_step(params, tokens, cache)
-            torch.cuda.synchronize()
+            _sync(device)
             decode_ms.append((time.perf_counter() - t) * 1e3)
             return out
 
         return dataclasses.replace(api, prefill=prefill, decode_step=decode_step)
 
     # warm-up (library loads, cuBLAS handles) on an engine of its own
-    warm = ServeEngine(api, params, slots=1, max_context=2048)
+    warm = ServeEngine(api, params, slots=1, max_context=max_context, device=device)
     warm.submit(GenerateRequest(prompt=prompts[0][:256], max_new_tokens=2))
     warm.run_until_drained()
     del warm
 
-    eng = ServeEngine(timed(api), params, slots=4, max_context=2048)
+    eng = ServeEngine(timed(api), params, slots=slots, max_context=max_context, device=device)
     for r in requests:
         eng.submit(r)
     fa_kernel.launches = 0
     ssd_kernel.launches = 0
     t0 = time.perf_counter()
     results = eng.run_until_drained()
-    torch.cuda.synchronize()
+    _sync(device)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa_kernel.launches, "mamba2_ssd": ssd_kernel.launches}
 
-    if len(results) != SERVE_REQUESTS or eng.prefills != SERVE_REQUESTS:
-        raise AssertionError(f"{len(results)} results and {eng.prefills} prefills for {SERVE_REQUESTS} requests")
+    n = len(requests)
+    if len(results) != n or eng.prefills != n:
+        raise AssertionError(f"{len(results)} results and {eng.prefills} prefills for {n} requests")
     for r in requests:
         t = results[r.req_id].tokens
-        if t.shape != (SERVE_NEW_TOKENS,) or not ((0 <= t) & (t < cfg.vocab_size)).all():
+        if t.shape != (new_tokens,) or not ((0 <= t) & (t < cfg.vocab_size)).all():
             raise AssertionError(f"request {r.req_id}: tokens {t}")
-    want = {
-        "flash_attention": n_shared_applications(cfg) * eng.prefills,
-        "mamba2_ssd": cfg.num_layers * eng.prefills,
-    }
+    # off the card the wrappers take the plain versions and launch nothing
+    want = {k: (v * eng.prefills if cuda else 0) for k, v in per_prefill.items()}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for {eng.prefills} prefills")
-    generated = SERVE_REQUESTS * SERVE_NEW_TOKENS
-    peak = torch.cuda.max_memory_allocated()
+    if cfg.sliding_window:
+        T = eng.cache["k"].shape[2]
+        if T != cache_len(cfg, max_context) or T != cfg.sliding_window:
+            raise AssertionError(f"the KV cache holds {T} slots, not the {cfg.sliding_window}-slot ring")
+        print(f"  KV cache: a ring of {T} slots for a {max_context}-token context")
+    generated = n * new_tokens
+    peak = f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB" if cuda else "not measured"
     print(
         f"  {eng.prefills} prefills, {eng.decode_steps} decode steps, wall {wall:.3f} s, "
         f"{generated} tokens generated = {generated / wall:.1f} tokens/s; launches {launches}; "
-        f"peak device memory {peak / 2**30:.3f} GiB"
+        f"peak device memory {peak}"
     )
     print("  prefill ms by prompt length: " + ", ".join(f"{n}: {ms:.2f}" for n, ms in prefill_ms))
     print(
@@ -868,28 +1236,32 @@ def serve_phase() -> Dict[str, int]:
         f"mean {float(np.mean(decode_ms)):.3f}, min {min(decode_ms):.3f}, max {max(decode_ms):.3f}"
     )
 
-    # profiles, after the counts are read: a few decode steps of the full
-    # batch, and one prefill of the ragged prompt length
-    tokens = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    with torch.inference_mode():
-        _, cache = api.decode_step(params, tokens, eng.cache)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for _ in range(4):
-                _, cache = api.decode_step(params, tokens, cache)
+    if cuda:
+        # profiles, after the counts are read: a few decode steps of the
+        # full batch, and one prefill of profile_len tokens
+        tokens = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+        with torch.inference_mode():
+            _, cache = api.decode_step(params, tokens, eng.cache)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        print_profile("decode x4 (batch 4)", prof, wall, top_n=8)
-        toks = torch.tensor(_prompts(rng, [1000], cfg.vocab_size)[0], device="cuda")[None]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            api.prefill(params, toks, max_len=2048)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        print_profile("prefill S 1000", prof, wall, top_n=8)
-    del params, eng, cache
-    torch.cuda.empty_cache()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for _ in range(4):
+                    _, cache = api.decode_step(params, tokens, cache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            print_profile(f"{cfg.name} decode x4 (batch {slots})", prof, wall, top_n=8)
+            toks = torch.tensor(_prompts(rng, [profile_len], cfg.vocab_size)[0], device=device)[None]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                api.prefill(params, toks, max_len=max_context)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            print_profile(f"{cfg.name} prefill S {profile_len}", prof, wall, top_n=8)
+        del cache
+        torch.cuda.empty_cache()
+    del params, eng
+    if cuda:
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -929,6 +1301,7 @@ def main(argv=None) -> int:
     check_device_tier_dtypes()
     total = args.rows // args.frag * args.frag
     gather = time_fragment_gather(total, args.frag)
+    dequant = check_dequant()
     attention = check_flash_attention()
     scan = check_mamba2_ssd()
 
@@ -942,11 +1315,24 @@ def main(argv=None) -> int:
         raise AssertionError("the main path never launched fragment_gather")
     gather["launches"] = result["launches"]
 
-    consistency_phase()
-    launches = serve_phase()
-    attention["launches"] = launches["flash_attention"]
-    scan["launches"] = launches["mamba2_ssd"]
-    print(json.dumps({"kernels": [gather, attention, scan]}))
+    f32 = dict(dtype="float32", kernels=False)
+    consistency_phase(model_config(ZAMBA2, **f32), (512, 1000), greedy=True)
+    consistency_phase(model_config(GRANITE, **f32), (512, 1000), greedy=True)
+    consistency_phase(model_config(MIXTRAL, layers=MIXTRAL_LAYERS, **f32), (8192,), greedy=False)
+
+    bf16 = dict(dtype="bfloat16", kernels=True)
+    runs = {
+        ZAMBA2: serve_phase(model_config(ZAMBA2, **bf16), slots=4, max_context=2048),
+        GRANITE: serve_phase(model_config(GRANITE, **bf16), slots=4, max_context=2048),
+        f"{MIXTRAL} ({MIXTRAL_LAYERS} layers)": serve_phase(
+            model_config(MIXTRAL, layers=MIXTRAL_LAYERS, **bf16), slots=2, max_context=8192,
+            lengths=[5000, 6500], new_tokens=16, sampled=False, profile_len=5000,
+        ),
+    }
+    attention["launches"] = sum(r["flash_attention"] for r in runs.values())
+    attention["launches_by_run"] = {name: r["flash_attention"] for name, r in runs.items()}
+    scan["launches"] = runs[ZAMBA2]["mamba2_ssd"]
+    print(json.dumps({"kernels": [gather, dequant, attention, scan]}))
     print(json.dumps({
         "ok": True,
         "device": {

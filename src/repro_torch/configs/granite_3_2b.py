@@ -1,0 +1,19 @@
+"""granite-3-2b [dense] — GQA [hf:ibm-granite/granite-3.0-2b-base].
+40L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=49155. Tied embeddings."""
+
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-2b",
+    family="dense",
+    num_layers=40,
+    d_model=2048,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=49155,
+    mlp="swiglu",
+    tie_embeddings=True,
+    microbatches=2,
+)

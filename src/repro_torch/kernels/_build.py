@@ -30,6 +30,7 @@ SOURCES: Dict[str, Path] = {
     "fragment_gather": _KERNELS / "fragment_gather" / "csrc" / "fragment_gather.cu",
     "flash_attention": _KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",
     "mamba2_ssd": _KERNELS / "mamba2_ssd" / "csrc" / "mamba2_ssd.cu",
+    "dequant": _KERNELS / "dequant" / "csrc" / "dequant.cu",
 }
 
 NVCC_FLAGS = (

@@ -16,12 +16,14 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.ssm import ssd_chunked
-
 __all__ = ["ssd_ref_sequential", "ssd_ref_chunked"]
 
 
 def ssd_ref_chunked(xh, dt, A, Bm, Cm, chunk: int = 256):
+    # imported here: models.ssm reaches the kernels package through the
+    # models package, which would make a cycle at import time
+    from repro_torch.models.ssm import ssd_chunked
+
     return ssd_chunked(xh, dt, A, Bm, Cm, chunk)
 
 

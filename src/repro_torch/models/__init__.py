@@ -1,6 +1,7 @@
 """Model zoo of the port: functional torch stacks over plain dicts of
-tensors, keyed as the reference's.  Served so far: the attention-free
-``ssm`` family (mamba2-780m) and the ``hybrid`` family (zamba2-1.2b)."""
+tensors, keyed as the reference's.  Every family of the registry is served:
+the transformer families (dense, MoE, audio, VLM), the attention-free
+``ssm`` family and the ``hybrid`` family."""
 
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeSpec
 from repro_torch.models.registry import ARCH_IDS, ModelAPI, get_config, get_model, list_archs

@@ -1,23 +1,26 @@
 """Transformer building blocks on torch tensors: norms, RoPE, GQA attention
-(full sequence and one-token decode) and the dense MLPs.
+(full sequence, sliding window, blocked long context and one-token decode),
+the dense MLPs and the capacity-based MoE layer.
 
 The port of ``repro.models.layers``.  Every function keeps the reference's
 dtype order: what the reference computes in f32 (norm statistics, RoPE
-angles, attention scores and softmax) is computed in f32 here, and what it
-computes in the activation dtype stays in it.  The reference's logical
-sharding constraints (``shard``) are the identity on one device and are left
-out.
+angles, attention scores and softmax, router logits and gates) is computed
+in f32 here, and what it computes in the activation dtype stays in it.  The
+reference's logical sharding constraints (``shard``) are the identity on one
+device and are left out.
 
 Attention on the full sequence takes the flash-attention kernel when
 ``cfg.use_pallas_kernels`` is set (``kernels.flash_attention``: the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor) and otherwise the
-plain-score formulation of the reference's XLA path.  The long-context
-(``S > 8192``) and sliding-window formulations, the MoE layer and the loss
-belong to later slices and raise ``NotImplementedError``.
+kernel on a CUDA tensor, its plain version on a CPU tensor) and otherwise
+the reference's XLA formulations: blocked-local for a sliding window shorter
+than the sequence, blocked online-softmax above 8192 positions, and
+materialised scores below.  The loss belongs to the training slice and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -78,9 +81,11 @@ def _causal_mask(S: int, T: int, q_offset: int = 0, window: int = 0, device=None
     return mask
 
 
-# Above this sequence length the reference switches to its blocked
-# online-softmax formulation; the port has not taken it over yet.
+# Above this sequence length the quadratic score matrix stops fitting device
+# memory and attention switches to the online-softmax blocked form.
 _FLASH_THRESHOLD = 8192
+_FLASH_QB = 1024  # query block
+_FLASH_KB = 2048  # key/value block
 
 
 def attention_train(
@@ -108,43 +113,113 @@ def attention_train(
     k_kv, v_kv = k, v
 
     if cfg.use_pallas_kernels:
+        # the kernel folds the query heads of a KV head itself: no repeat
         from repro_torch.kernels.flash_attention import flash_attention
 
         out = flash_attention(q, k_kv, v_kv, scale=scale, causal=True, window=cfg.sliding_window)
-    elif cfg.sliding_window and S > cfg.sliding_window:
-        out = _blocked_local_attention(q, k, v, cfg.sliding_window, scale)
-    elif S > _FLASH_THRESHOLD:
-        out = _blocked_causal_attention(q, k, v, scale)
     else:
-        if KV != H:  # repeat-KV
+        if KV != H:  # repeat-KV to the full heads, as every XLA branch takes them
             rep = H // KV
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
-        # f32 products of the activation-dtype inputs, f32 sums (the
-        # reference's preferred_element_type=f32)
-        scores = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
-        mask = _causal_mask(S, S, window=cfg.sliding_window, device=x.device)
-        scores = torch.where(mask[None, None], scores, _NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.einsum("bhst,bthk->bshk", probs, v)
+        if cfg.sliding_window and S > cfg.sliding_window:
+            out = _blocked_local_attention(q, k, v, cfg.sliding_window, scale)
+        elif S > _FLASH_THRESHOLD:
+            out = _blocked_causal_attention(q, k, v, scale)
+        else:
+            # f32 products of the activation-dtype inputs, f32 sums (the
+            # reference's preferred_element_type=f32)
+            scores = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+            mask = _causal_mask(S, S, window=cfg.sliding_window, device=x.device)
+            scores = torch.where(mask[None, None], scores, _NEG_INF)
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            out = torch.einsum("bhst,bthk->bshk", probs, v)
     proj = torch.einsum("bshk,hkd->bsd", out, wo)
     if return_kv:
         return proj, k_kv, v_kv
     return proj
 
 
-def _blocked_causal_attention(q, k, v, scale):
-    raise NotImplementedError(
-        "attention over more than 8192 positions (the reference's blocked "
-        "causal formulation) is not ported yet: ROADMAP A10, transformer family"
-    )
+def _blocked_causal_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """Causal attention with flash-attention memory behaviour in plain torch:
+    a loop over query blocks, an inner loop over KV blocks with the running
+    f32 (max, denominator, numerator).  q, k, v are ``(B, S, H, hd)`` with
+    the KV heads already repeated.  S must be a multiple of both block sizes
+    (where the reference's reshape would fail, this raises).
+
+    The reference scans every KV block for every query block, masked; the
+    blocks wholly after a query block's last position are skipped here.
+    That changes no bit: KV block 0 always holds a visible key, so the
+    running max is finite before any skipped block, whose probabilities
+    would all be exp(-1e30 - m) = 0 with a correction of exp(0) = 1."""
+    B, S, H, hd = q.shape
+    QB, KB = min(_FLASH_QB, S), min(_FLASH_KB, S)
+    if S % QB or S % KB:
+        raise ValueError(f"S {S} is not a multiple of the blocks ({QB}, {KB})")
+    out = torch.empty_like(q)
+    for qi in range(S // QB):
+        qblk = q[:, qi * QB : (qi + 1) * QB].float()
+        qpos = qi * QB + torch.arange(QB, device=q.device)[:, None]
+        m = torch.full((B, H, QB), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, QB), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, QB, hd), dtype=torch.float32, device=q.device)
+        for ki in range(S // KB):
+            if ki * KB > (qi + 1) * QB - 1:
+                break
+            kblk = k[:, ki * KB : (ki + 1) * KB]
+            vblk = v[:, ki * KB : (ki + 1) * KB]
+            s = torch.einsum("bqhk,bthk->bhqt", qblk, kblk.float()) * scale
+            kpos = ki * KB + torch.arange(KB, device=q.device)[None, :]
+            s = torch.where((kpos <= qpos)[None, None], s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqt,bthk->bhqk", p.to(vblk.dtype).float(), vblk.float()
+            )
+            m = m_new
+        out[:, qi * QB : (qi + 1) * QB] = (acc / l[..., None]).to(q.dtype).transpose(1, 2)
+    return out
 
 
-def _blocked_local_attention(q, k, v, window, scale):
-    raise NotImplementedError(
-        "sliding-window attention (the reference's blocked-local formulation) "
-        "is not ported yet: ROADMAP A10, transformer family"
-    )
+def _blocked_local_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, scale: float
+) -> torch.Tensor:
+    """Sliding-window attention in O(S·2W): block-diagonal plus one
+    off-diagonal block.  q, k, v are ``(B, S, H, hd)`` with the KV heads
+    already repeated; S must be a multiple of the window (where the
+    reference's reshape would fail, this raises).  Block i's queries see
+    keys in blocks i-1 and i, masked to the exact window.  The f32 scores
+    are scaled and masked in place, so the peak holds the scores and the
+    probabilities, not four copies."""
+    B, S, H, hd = q.shape
+    W = window
+    if S % W:
+        raise ValueError(f"S {S} is not a multiple of the window {W}")
+    nb = S // W
+    qb = q.reshape(B, nb, W, H, hd)
+    kb = k.reshape(B, nb, W, H, hd)
+    vb = v.reshape(B, nb, W, H, hd)
+    # previous block (block -1 is zeros, fully masked)
+    k_prev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    v_prev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    kk = torch.cat([k_prev, kb], dim=2)  # (B, nb, 2W, H, hd)
+    vv = torch.cat([v_prev, vb], dim=2)
+    scores = torch.einsum("bnqhk,bnthk->bnhqt", qb.float(), kk.float())
+    scores.mul_(scale)
+    qpos = torch.arange(W, device=q.device)[:, None] + W  # query index within the 2W keys
+    kpos = torch.arange(2 * W, device=q.device)[None, :]
+    base = (kpos <= qpos) & (kpos > qpos - W)  # (W, 2W)
+    has_prev = torch.arange(nb, device=q.device) > 0  # block 0's "previous" keys are padding
+    allow = base[None] & (has_prev[:, None, None] | (kpos >= W)[None])  # (nb, W, 2W)
+    scores.masked_fill_(~allow[None, :, None], _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    del scores
+    out = torch.einsum("bnhqt,bnthk->bnqhk", probs, vv)
+    return out.reshape(B, S, H, hd)
 
 
 def attention_decode(
@@ -190,24 +265,87 @@ def attention_decode(
 # ------------------------------------------------------------------- MLPs
 def mlp_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Dense MLP: swiglu (w1·silu ⊙ w3) | relu2 (squared ReLU) | gelu."""
+    h = torch.einsum("bsd,df->bsf", x, w["w1"])
     if cfg.mlp == "swiglu":
-        h = torch.einsum("bsd,df->bsf", x, w["w1"])
-        g = torch.einsum("bsd,df->bsf", x, w["w3"])
-        h = F.silu(h) * g
-    elif cfg.mlp == "relu2":
-        r = F.relu(torch.einsum("bsd,df->bsf", x, w["w1"]))
-        h = r * r
-    else:  # gelu (jax.nn.gelu's default is the tanh approximation)
-        h = F.gelu(torch.einsum("bsd,df->bsf", x, w["w1"]), approximate="tanh")
+        h = F.silu(h) * torch.einsum("bsd,df->bsf", x, w["w3"])
+    else:
+        h = _act(cfg, h)
     return torch.einsum("bsf,fd->bsd", h, w["w2"])
 
 
-def _expert_ffn(cfg: ArchConfig, xs, w):
-    raise NotImplementedError("MoE experts are not ported yet: ROADMAP A10, MoE family")
+def _act(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """The non-gated activations: squared ReLU, or GELU in the tanh form
+    (``jax.nn.gelu``'s default)."""
+    if cfg.mlp == "relu2":
+        r = F.relu(h)
+        return r * r
+    return F.gelu(h, approximate="tanh")
 
 
-def moe_apply(cfg: ArchConfig, x, w):
-    raise NotImplementedError("the MoE layer is not ported yet: ROADMAP A10, MoE family")
+def _expert_ffn(cfg: ArchConfig, xs: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """xs: (E, C, D) -> (E, C, D) through per-expert weights (E, D, F)."""
+    h = torch.einsum("ecd,edf->ecf", xs, w["w1"])
+    if cfg.mlp == "swiglu":
+        h = F.silu(h) * torch.einsum("ecd,edf->ecf", xs, w["w3"])
+    else:
+        h = _act(cfg, h)
+    return torch.einsum("ecf,efd->ecd", h, w["w2"])
+
+
+_MOE_GROUP = 512  # tokens per dispatch group
+
+
+def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Capacity-based top-k MoE with grouped one-hot dispatch (GShard), as
+    the reference's: tokens split into groups of at most 512, each group
+    routing its tokens to a per-group expert capacity
+    ``C = ceil(Tg·k/E · cf)``; overflow is dropped and the kept gates
+    renormalised.  Dispatch and combine are einsums against a one-hot
+    (G, Tg, E, C) tensor.
+
+    A dropped (token, k) slot maps to capacity index C; ``jax.nn.one_hot``
+    gives an all-zero row for it, so the one-hot here takes C + 1 classes
+    and drops the last."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    g_size = min(_MOE_GROUP, S)
+    while S % g_size:
+        g_size -= 1
+    G = T // g_size
+    C = max(int(math.ceil(g_size * K / E * cfg.capacity_factor)), 1)
+    xg = x.reshape(G, g_size, D)
+
+    logits = torch.einsum("gtd,de->gte", xg.float(), w["router"].float())  # f32
+    gate_vals, expert_ids = torch.topk(logits, K, dim=-1)  # (G, Tg, K), descending
+    gates = torch.softmax(gate_vals, dim=-1)
+
+    # one-hot expert choice per k-slot: (G, Tg, K, E)
+    onehot = F.one_hot(expert_ids, E).float()
+    # position of each (token, k) inside its expert's per-group queue:
+    # cumulative count over the flattened (Tg·K) routing slots
+    flat = onehot.reshape(G, g_size * K, E)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, g_size, K, E)  # before self
+    pos_in_expert = (pos * onehot).sum(dim=-1)  # (G, Tg, K)
+    keep = pos_in_expert < C
+    gates = gates * keep  # drop overflow; renormalise below
+    denom = torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    gates = gates / denom
+
+    # dispatch one-hot over capacity slots: (G, Tg, K, C); a dropped slot
+    # lands on the extra class C, which is cut off
+    slot = torch.where(keep, pos_in_expert, float(C)).long()
+    cap_oh = F.one_hot(slot, C + 1)[..., :C].float()
+    dispatch = torch.einsum("gtke,gtkc->gtec", onehot, cap_oh)
+    combine = torch.einsum("gtk,gtke,gtkc->gtec", gates, onehot, cap_oh)
+
+    expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
+    expert_out = _expert_ffn(cfg, expert_in.reshape(E, G * C, D), w).reshape(E, G, C, D)
+    out = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype), expert_out)
+
+    if cfg.moe_shared_expert:
+        out = out + mlp_apply(cfg, xg, w["shared"])
+    return out.reshape(B, S, D)
 
 
 # ------------------------------------------------------------------- loss

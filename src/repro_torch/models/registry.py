@@ -1,8 +1,8 @@
 """Architecture registry: config lookup and family dispatch.
 
-``get_model(cfg)`` returns a uniform functional API regardless of family.
-The port serves the ``ssm`` and ``hybrid`` families so far; the others
-raise ``NotImplementedError`` naming the ROADMAP item.  The reference's
+``get_model(cfg)`` returns a uniform functional API regardless of family:
+``transformer`` serves the dense, MoE, audio and VLM families, ``mamba``
+the ``ssm`` family and ``hybrid`` the ``hybrid`` family.  The reference's
 ``input_specs`` and ``cell_is_runnable`` (dry-run shape stand-ins) come with
 the ``launch/`` slice, and the logical sharding axes of its ``ModelAPI``
 with the ``dist/`` slice.
@@ -43,15 +43,16 @@ class ModelAPI:
 
 
 def _family_module(family: str):
-    from repro_torch.models import hybrid, mamba
+    from repro_torch.models import hybrid, mamba, transformer
 
-    ported = {"ssm": mamba, "hybrid": hybrid}
-    if family not in ported:
-        raise NotImplementedError(
-            f"the {family!r} family is not ported yet: ROADMAP A10 "
-            "(transformer and MoE families)"
-        )
-    return ported[family]
+    return {
+        "dense": transformer,
+        "moe": transformer,
+        "audio": transformer,
+        "vlm": transformer,
+        "ssm": mamba,
+        "hybrid": hybrid,
+    }[family]
 
 
 def get_model(cfg: ArchConfig) -> ModelAPI:
@@ -77,15 +78,7 @@ def _module_name(arch_id: str) -> str:
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    name = f"repro_torch.configs.{_module_name(arch_id)}"
-    try:
-        mod = importlib.import_module(name)
-    except ModuleNotFoundError as e:
-        if e.name != name or arch_id not in ARCH_IDS:
-            raise
-        raise NotImplementedError(
-            f"{arch_id}'s config comes with its family: ROADMAP A10"
-        ) from None
+    mod = importlib.import_module(f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
 
 

@@ -20,11 +20,18 @@ from repro_torch.models.config import ArchConfig
 
 __all__ = ["params_from_reference"]
 
-# top-level keys of each served family's parameter tree
-_KEYS = {
-    "ssm": {"embed", "layers", "final_norm", "lm_head"},
-    "hybrid": {"embed", "layers", "final_norm", "lm_head", "shared_attn"},
-}
+
+def _keys(cfg: ArchConfig) -> set:
+    """The top-level keys of the family's parameter tree."""
+    if cfg.family == "ssm":
+        return {"embed", "layers", "final_norm", "lm_head"}
+    if cfg.family == "hybrid":
+        return {"embed", "layers", "final_norm", "lm_head", "shared_attn"}
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        # layers hold "mlp" or "moe" (with "shared" for a shared expert)
+        keys = {"embed", "layers", "final_norm"}
+        return keys if cfg.tie_embeddings else keys | {"lm_head"}
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _leaf(a: Any, device: torch.device) -> torch.Tensor:
@@ -46,9 +53,7 @@ def params_from_reference(
     """The port's parameters from the reference's numpy tree.  ``device``
     ``None`` means the CUDA card (raises without one)."""
     device = resolve_device(device)
-    want = _KEYS.get(cfg.family)
-    if want is None:
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet: ROADMAP A10")
+    want = _keys(cfg)
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: parameter keys {sorted(tree)} != {sorted(want)}")
     return _convert(tree, device)

@@ -26,3 +26,9 @@ except ModuleNotFoundError:
     import _hypothesis_stub
 
     _hypothesis_stub.install()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (a CUDA kernel has no CPU mode); skips without one"
+    )

@@ -2,6 +2,9 @@
 
 - Every module of ``repro_torch`` and ``chip_smoke`` imports with ``jax``
   and ``repro`` poisoned, and no source file names either in an import.
+- ``repro_torch.kernels`` exports the reference package's nine names,
+  imported first from any side of the package without a cycle, and its
+  import builds nothing.
 - Modules the port keeps as copies equal their reference modules once
   ``repro.`` is rewritten to ``repro_torch.``, so they cannot drift.
 - Without a CUDA card the default device raises instead of carrying on on
@@ -31,7 +34,15 @@ COPIES = [
     "analysis/module_scan.py",
     "analysis/walker.py",
     "configs/__init__.py",
+    "configs/granite_3_2b.py",
+    "configs/granite_3_8b.py",
+    "configs/internvl2_76b.py",
+    "configs/llama4_scout_17b_a16e.py",
     "configs/mamba2_780m.py",
+    "configs/mixtral_8x22b.py",
+    "configs/musicgen_medium.py",
+    "configs/nemotron_4_340b.py",
+    "configs/phi3_mini_3_8b.py",
     "configs/zamba2_1_2b.py",
     "core/__init__.py",
     "core/baselines.py",
@@ -110,6 +121,55 @@ def test_no_source_names_jax_or_repro_in_an_import(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{path}:{node.lineno} imports {name}"
+
+
+def test_the_scan_covers_every_kernel_package():
+    scanned = {os.path.relpath(p, PORT) for p in _source_files() if p.startswith(PORT)}
+    for kernel in ("dequant", "flash_attention", "fragment_gather", "mamba2_ssd"):
+        for f in ("__init__.py", "kernel.py", "ops.py", "ref.py"):
+            assert os.path.join("kernels", kernel, f) in scanned
+
+
+@pytest.mark.parametrize(
+    "first",
+    [
+        "repro_torch.kernels",
+        "repro_torch.kernels.mamba2_ssd.ref",
+        "repro_torch.models.ssm",
+        "repro_torch.core.device",
+        "repro_torch.serve",
+    ],
+)
+def test_kernels_package_exports_the_reference_names_without_a_cycle(first):
+    """Imported first from each side of the models/kernels boundary, in a
+    fresh process with jax and repro poisoned and nvcc forbidden: the
+    package exposes the reference's nine names as functions and builds and
+    loads no library."""
+    from repro import kernels as ref_kernels
+
+    names = sorted(ref_kernels.__all__)
+    code = (
+        "import importlib, subprocess, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a build was started')\n"
+        "subprocess.Popen = refuse\n"
+        f"importlib.import_module({first!r})\n"
+        "import repro_torch.kernels as K\n"
+        "from repro_torch.kernels import _build\n"
+        f"assert sorted(K.__all__) == {names!r}, K.__all__\n"
+        "bad = [n for n in K.__all__ if not callable(getattr(K, n)) or isinstance(getattr(K, n), type(K))]\n"
+        "assert not bad, bad\n"
+        "assert not _build._libs\n"
+        "print('exports', len(K.__all__))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "exports 9" in proc.stdout
 
 
 @pytest.mark.parametrize("rel", COPIES)

@@ -1,6 +1,8 @@
 """The port's model building blocks against the reference's, on the CPU:
 norm, RoPE, full-sequence and decode attention (kernels on and off), the
-MLPs, the SSM pieces and the Mamba2 mixer.  Inputs come from numpy seeds;
+blocked causal and sliding-window attentions, the MLPs, the experts and the
+MoE layer (with dropped tokens and a shared expert), the SSM pieces and the
+Mamba2 mixer.  Inputs come from numpy seeds;
 the mixer runs on the reference's own weights carried over by
 ``params_from_reference``.  Where both run the same ops in the same order
 the bar is 1e-4; where the reference runs its Pallas kernel in interpret
@@ -37,22 +39,15 @@ def arch(request):
 
 
 def test_unported_layers_raise_naming_the_roadmap():
-    cfg = get_config("zamba2-1.2b").reduced()
-    for fn, args in [
-        (PL.moe_apply, (cfg, None, None)),
-        (PL.cross_entropy, (None, None, None)),
-        (PL._blocked_causal_attention, (None, None, None, 1.0)),
-        (PL._blocked_local_attention, (None, None, None, 64, 1.0)),
-    ]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args)
-    # the dispatch reaches them, as the reference's does
-    x = torch.zeros((1, 16, cfg.d_model))
-    w = torch.zeros((cfg.d_model, cfg.num_heads, cfg.resolved_head_dim))
-    wo = torch.zeros((cfg.num_heads, cfg.resolved_head_dim, cfg.d_model))
-    windowed = dataclasses.replace(cfg, sliding_window=8)
+    """Only the loss is left to the training slice.  The blocked attentions
+    raise where the reference's reshapes fail, instead of padding."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.attention_train(windowed, x, w, w, w, wo, torch.arange(16))
+        PL.cross_entropy(None, None, None)
+    q = torch.zeros((1, 96, 2, 16))
+    with pytest.raises(ValueError, match="window"):
+        PL._blocked_local_attention(q, q, q, 64, 1.0)
+    with pytest.raises(ValueError, match="blocks"):
+        PL._blocked_causal_attention(torch.zeros((1, 3072, 1, 16)), q, q, 1.0)
 
 
 # ------------------------------------------------------------------- layers
@@ -175,3 +170,100 @@ def test_mamba2_mixer_matches(arch, flag):
     got_d = PS.mamba2_decode(cfg, _t(x[:, :1]), lp, _t(h0), _t(np.asarray(want[2])))
     for g, r in zip(got_d, want_d):
         np.testing.assert_allclose(_np(g), np.asarray(r), **ONE_FOR_ONE)
+
+
+# ------------------------------------------------- blocked attention, MoE
+def _qkv(rng, B, S, H, KV, hd):
+    return [rng.standard_normal((B, S, h, hd)).astype(np.float32) for h in (H, KV, KV)]
+
+
+def test_blocked_causal_attention_matches():
+    """Called directly at S 4096: four query blocks of 1024 against two KV
+    blocks of 2048, heads already repeated (as attention_train passes
+    them)."""
+    q, k, v = _qkv(np.random.default_rng(8), 1, 4096, 2, 2, 16)
+    want = RL._blocked_causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.25)
+    got = PL._blocked_causal_attention(_t(q), _t(k), _t(v), 0.25)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **ONE_FOR_ONE)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 1])
+def test_blocked_local_attention_matches(kv_heads):
+    """S = 4·W, called directly and through attention_train's sliding-window
+    branch with fewer KV heads than query heads (repeated before the
+    blocked branch, as the reference does)."""
+    rng = np.random.default_rng(9)
+    W, S = 16, 64
+    q, k, v = _qkv(rng, 2, S, 4, 4, 8)
+    want = RL._blocked_local_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), W, 0.3)
+    got = PL._blocked_local_attention(_t(q), _t(k), _t(v), W, 0.3)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **ONE_FOR_ONE)
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(), sliding_window=W, num_kv_heads=kv_heads)
+    rcfg = dataclasses.replace(ref_get_config("mixtral-8x22b").reduced(), sliding_window=W, num_kv_heads=kv_heads)
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    x = rng.standard_normal((2, S, D)).astype(np.float32)
+    w = [rng.standard_normal(s).astype(np.float32) * D**-0.5
+         for s in [(D, H, hd), (D, kv_heads, hd), (D, kv_heads, hd), (H, hd, D)]]
+    pos = np.arange(S, dtype=np.int32)
+    want = RL.attention_train(rcfg, jnp.asarray(x), *map(jnp.asarray, w), jnp.asarray(pos), return_kv=True)
+    got = PL.attention_train(cfg, _t(x), *map(_t, w), _t(pos), return_kv=True)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(r), **ONE_FOR_ONE)
+
+
+def _expert_weights(rng, cfg, scale=0.1):
+    D, F_, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    names = ["w1", "w3", "w2"] if cfg.mlp == "swiglu" else ["w1", "w2"]
+    shapes = {"w1": (E, D, F_), "w3": (E, D, F_), "w2": (E, F_, D)}
+    return {n: rng.standard_normal(shapes[n]).astype(np.float32) * scale for n in names}
+
+
+@pytest.mark.parametrize("mlp", ["swiglu", "relu2", "gelu"])
+def test_expert_ffn_matches(mlp):
+    rng = np.random.default_rng(10)
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(), mlp=mlp)
+    rcfg = dataclasses.replace(ref_get_config("mixtral-8x22b").reduced(), mlp=mlp)
+    w = _expert_weights(rng, cfg)
+    xs = rng.standard_normal((cfg.num_experts, 6, cfg.d_model)).astype(np.float32)
+    want = RL._expert_ffn(rcfg, jnp.asarray(xs), {k: jnp.asarray(v) for k, v in w.items()})
+    got = PL._expert_ffn(cfg, _t(xs), {k: _t(v) for k, v in w.items()})
+    np.testing.assert_allclose(_np(got), np.asarray(want), **ONE_FOR_ONE)
+
+
+def _dropped_slots(x, router, cfg) -> int:
+    """(token, k) routing slots past their expert's capacity, counted in
+    numpy from the router logits: the drops the layer must apply."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    g = min(512, S)
+    while S % g:
+        g -= 1
+    C = max(int(np.ceil(g * K / E * cfg.capacity_factor)), 1)
+    ids = np.argsort(-(x.reshape(-1, g, D) @ router), axis=-1, kind="stable")[..., :K]
+    counts = np.stack([np.bincount(grp.ravel(), minlength=E) for grp in ids])
+    return int(np.clip(counts - C, 0, None).sum())
+
+
+@pytest.mark.parametrize("arch_id", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_apply_matches_with_dropped_tokens(arch_id):
+    """At the production capacity factor 1.25 (reduced() sets a no-drop
+    one), with the router tilted towards expert 0 so that its queue
+    overflows: the overflow is dropped as the reference drops it.  llama4
+    adds its shared expert."""
+    rng = np.random.default_rng(11)
+    cfg = dataclasses.replace(get_config(arch_id).reduced(), capacity_factor=1.25)
+    rcfg = dataclasses.replace(ref_get_config(arch_id).reduced(), capacity_factor=1.25)
+    D = cfg.d_model
+    x = rng.standard_normal((2, 64, D)).astype(np.float32)
+    w = _expert_weights(rng, cfg)
+    w["router"] = rng.standard_normal((D, cfg.num_experts)).astype(np.float32) * D**-0.5
+    w["router"][:, 0] += x.mean(axis=(0, 1)) * 4.0  # expert 0 wins most tokens
+    if cfg.moe_shared_expert:
+        F_ = cfg.d_ff
+        w["shared"] = {n: rng.standard_normal(s).astype(np.float32) * 0.1
+                       for n, s in [("w1", (D, F_)), ("w3", (D, F_)), ("w2", (F_, D))]}
+    assert _dropped_slots(x, w["router"], cfg) > 0
+    want = RL.moe_apply(rcfg, jnp.asarray(x), jax.tree.map(jnp.asarray, w))
+    got = PL.moe_apply(cfg, _t(x), jax.tree.map(_t, w))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **ONE_FOR_ONE)

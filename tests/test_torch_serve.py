@@ -1,5 +1,6 @@
 """The port's ``ServeEngine`` on the CPU against the reference's engine:
-the same greedy tokens for reduced zamba2-1.2b and mamba2-780m, with mixed
+the same greedy tokens for reduced zamba2-1.2b, mamba2-780m, granite-3-2b
+(dense) and mixtral-8x22b (MoE, ring KV cache of the window), with mixed
 prompt lengths decoding in one batch, more requests than slots (slot
 reuse) and EOS; temperature sampling stays in the vocab and repeats under
 one seed (its bits differ from ``jax.random``'s, so only greedy is held
@@ -19,7 +20,7 @@ from repro_torch.models import get_model
 from repro_torch.serve import GenerateRequest, ServeEngine
 from torch_parity import reduced_pair
 
-ARCHS = ["zamba2-1.2b", "mamba2-780m"]
+ARCHS = ["zamba2-1.2b", "mamba2-780m", "granite-3-2b", "mixtral-8x22b"]
 PROMPT_LENS = [12, 5, 17, 9, 3]  # five requests on two slots
 NEW_TOKENS = 5
 
@@ -38,8 +39,8 @@ def served(request):
     return get_model(cfg), params, prompts, want
 
 
-def _run(api, params, requests, **kw):
-    eng = ServeEngine(api, params, max_context=64, device="cpu", **kw)
+def _run(api, params, requests, max_context=64, **kw):
+    eng = ServeEngine(api, params, max_context=max_context, device="cpu", **kw)
     rids = [eng.submit(r) for r in requests]
     res = eng.run_until_drained()
     assert set(res) == set(rids)
@@ -100,3 +101,26 @@ def test_prompt_must_fit_the_context(served):
     eng = ServeEngine(api, params, slots=1, max_context=8, device="cpu")
     with pytest.raises(ValueError):
         eng.submit(GenerateRequest(prompt=np.zeros(8, np.int32)))
+
+
+def test_ring_cache_past_the_window_matches_reference():
+    """mixtral-8x22b's window (64 reduced) is shorter than both prompts,
+    neither a multiple of it: the engine admits ring caches of 64 slots
+    with a nonzero rotation and decodes past the window, token for token
+    with the reference (both on the kernel path, which takes any length)."""
+    import dataclasses
+
+    rcfg, rparams, cfg, params = reduced_pair("mixtral-8x22b")
+    rcfg = dataclasses.replace(rcfg, use_pallas_kernels=True)
+    cfg = dataclasses.replace(cfg, use_pallas_kernels=True)
+    W = cfg.sliding_window
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in (W + 6, W + 27)]
+    eng = RefEngine(ref_get_model(rcfg), rparams, slots=2, max_context=2 * W)
+    rids = [eng.submit(RefRequest(prompt=p, max_new_tokens=NEW_TOKENS)) for p in prompts]
+    res = eng.run_until_drained()
+    want = [res[r].tokens.tolist() for r in rids]
+    port, got = _run(get_model(cfg), params, [GenerateRequest(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts],
+                     slots=2, max_context=2 * W)
+    assert port.cache["k"].shape[2] == W
+    assert got == want

@@ -1,0 +1,79 @@
+"""``chip_smoke.py``'s model phases, rehearsed on the CPU at reduced size:
+the f32 consistency phase (kernels on against off, with the MoE router
+trace) and the serve phase (engine traffic, launch counts, the ring cache),
+for the dense and the MoE sliding-window transformer.  On the CPU the
+wrappers take their plain versions, so no kernel launches and none is
+expected; on the card the same code holds the counts."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import pytest
+import torch
+
+import chip_smoke
+from repro_torch.models import get_config, get_model
+
+
+def _reduced(arch: str, **kw):
+    return dataclasses.replace(get_config(arch).reduced(), **kw)
+
+
+@pytest.mark.parametrize("arch,lengths", [("granite-3-2b", (40, 77)), ("mixtral-8x22b", (128,))])
+def test_consistency_phase_runs_on_the_cpu(arch, lengths, capsys):
+    chip_smoke.consistency_phase(_reduced(arch), lengths, greedy=True, device="cpu", new_tokens=4)
+    out = capsys.readouterr().out
+    assert "depth cut to 3" in out and "FAIL" not in out
+    assert ("MoE layer 2" in out) == (arch == "mixtral-8x22b")
+
+
+@pytest.mark.parametrize(
+    "arch,lengths,max_context", [("granite-3-2b", [40, 77, 12], 128), ("mixtral-8x22b", [70, 91], 256)]
+)
+def test_serve_phase_runs_on_the_cpu(arch, lengths, max_context, capsys):
+    cfg = _reduced(arch, use_pallas_kernels=True)
+    launches = chip_smoke.serve_phase(
+        cfg, slots=2, max_context=max_context, lengths=lengths, new_tokens=4, device="cpu"
+    )
+    assert launches == {"flash_attention": 0, "mamba2_ssd": 0}
+    out = capsys.readouterr().out
+    assert f"{len(lengths)} prefills" in out and "peak device memory not measured" in out
+    assert ("a ring of 64 slots" in out) == (arch == "mixtral-8x22b")
+
+
+def _router(logits):
+    return [torch.tensor(logits, dtype=torch.float32)[None]]
+
+
+def test_routing_flips_name_the_first_layer_and_its_margin():
+    # one token, four experts, top-2: the 2nd and 3rd expert nearly tie
+    off = _router([[3.0, 1.0, 0.9999, -2.0]])
+    assert chip_smoke._routing_flips(off, off, 2) is None
+    layer, margin = chip_smoke._routing_flips(_router([[3.0, 0.9998, 0.9999, -2.0]]), off, 2)
+    assert layer == 0 and margin == pytest.approx(1e-4, rel=1e-2)
+    far = _router([[3.0, 1.0, 0.5, -2.0]])
+    layer, margin = chip_smoke._routing_flips(far + _router([[3.0, 0.4, 0.5, -2.0]]), far + far, 2)
+    assert layer == 1 and margin == pytest.approx(0.5)
+
+
+def test_the_chain_is_not_blamed_when_it_keeps_rounding_inside_the_bar():
+    """The reduced granite holds rounding-sized differences inside the bar,
+    so a difference of its logits could not be blamed on the stack: the
+    attribution refuses (every attention layer itself holds)."""
+    cfg = _reduced("granite-3-2b")
+    api = get_model(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode(), chip_smoke._attention_calls(cfg) as calls:
+        api.prefill(params, toks)
+    assert len(calls) == cfg.num_layers
+    with torch.inference_mode(), pytest.raises(AssertionError, match="keeps rounding-sized differences"):
+        chip_smoke._attribute_to_the_chain(cfg, api, params, toks, calls, err=1.0)
+
+
+def test_one_ulp_moves_every_value_by_one_float_step():
+    t = torch.randn(1000, generator=torch.Generator().manual_seed(2))
+    moved = chip_smoke._one_ulp(t)
+    step = torch.nextafter(t, torch.full_like(t, float("inf"))) - t
+    assert torch.all((moved - t).abs() <= step * 1.0000001 + 1e-45) and torch.all(moved != t)
