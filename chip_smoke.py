@@ -11,10 +11,13 @@
    ragged shapes and on a view that is not 16-byte aligned, and the kernels
    entry point (``repro_torch.kernels.dequant``, its only caller) decodes
    the page.  ``flash_attention`` is held at zamba2-1.2b's, granite-3-2b's
-   (4 query heads a KV head) and mixtral-8x22b's heads (6 a KV head, head
-   dim 128, a 4096-position window) and ``mamba2_ssd`` at zamba2's widths,
-   in f32 and bf16, at the reference's tolerances (SSD also against the
-   sequential recurrence).
+   (4 query heads a KV head), mixtral-8x22b's (6 a KV head, head dim 128, a
+   4096-position window), phi3-mini-3.8b's (head dim 96) and
+   nemotron-4-340b's heads (12 a KV head, head dim 192) and ``mamba2_ssd``
+   at zamba2's widths, in f32 (CUDA-core route) and bf16 (tensor-core
+   route), at the reference's tolerances (SSD also against the sequential
+   recurrence).  The tensor-core instructions (``HMMA``/``HGMMA``) of each
+   built library are counted from ``cuobjdump -sass``.
 3. Pipeline path: a declarative ``@model`` pipeline over the lakehouse (the
    BENCH_8 project: a differential torch ``feats`` node and a full-window
    torch ``score`` node) runs nine edits on a 2^24-row events table, about
@@ -32,7 +35,7 @@
    width and depth behind ``ServeEngine(slots=4, max_context=2048)``, eight
    requests of 256-1536 prompt tokens and 32 new tokens each (every prefill
    launches ``flash_attention`` once per attention layer, ``mamba2_ssd``
-   once per Mamba2 layer); mixtral-8x22b (2 layers) behind
+   once per Mamba2 layer, every launch on the tensor-core route); mixtral-8x22b (2 layers) behind
    ``ServeEngine(slots=2, max_context=8192)``, two greedy prompts of 5000
    and 6500 tokens past its window, 16 new tokens each, on a 4096-slot ring
    cache.
@@ -192,6 +195,30 @@ def _time_ms(fn, launches: int = 20, repeats: int = 7) -> float:
 
 
 # ------------------------------------------------------------ kernel phase
+# the kernels whose bf16 route runs its products on the tensor cores
+TENSOR_CORE_KERNELS = ("flash_attention", "mamba2_ssd")
+
+
+def count_mma() -> Dict[str, Dict[str, int]]:
+    """The tensor-core instructions of each built library, from ``cuobjdump
+    -sass``: ``HMMA`` (mma.sync) and ``HGMMA`` (wgmma).  Raises when a
+    kernel of TENSOR_CORE_KERNELS has none."""
+    from repro_torch.kernels import _build
+
+    counts = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run(
+            [_build.cuda_tool("cuobjdump"), "-sass", str(_build.target(name))],
+            capture_output=True, text=True, check=True,
+        ).stdout.splitlines()
+        counts[name] = {op: sum(f" {op}." in line or f" {op} " in line for line in sass) for op in ("HMMA", "HGMMA")}
+        print(f"{name}: {counts[name]['HMMA']} HMMA and {counts[name]['HGMMA']} HGMMA instructions in its SASS")
+    for name in TENSOR_CORE_KERNELS:
+        if not (counts[name]["HMMA"] or counts[name]["HGMMA"]):
+            raise AssertionError(f"{name}'s library holds no tensor-core instruction")
+    return counts
+
+
 GATHER_DTYPES = [
     torch.bool, torch.int8, torch.int16, torch.int32, torch.int64,
     torch.uint8, torch.uint16, torch.uint32, torch.uint64,
@@ -403,30 +430,35 @@ def _attention_work(S: int, H: int, KV: int, hd: int, window: int) -> Tuple[floa
 
 
 # (label, H, KV, hd, S, window): zamba2-1.2b's shared block (and grouped or
-# windowed variants of it), granite-3-2b's layers (4 query heads a KV head)
-# and mixtral-8x22b's (6 a KV head, head dim 128, a 4096-position window
-# crossed by both lengths)
+# windowed variants of it), granite-3-2b's layers (4 query heads a KV head),
+# mixtral-8x22b's (6 a KV head, head dim 128, a 4096-position window
+# crossed by both lengths), phi3-mini-3.8b's (head dim 96) and
+# nemotron-4-340b's (12 a KV head, head dim 192), and the reduced configs'
+# head widths (32, 16: narrower than the 64-column TMA box, zero-filled)
 ATTN_CASES = (
     [("zamba2-1.2b", 32, 32, 64, S, 0) for S in PROMPT_LENS]
     + [("zamba2 G4", 32, 8, 64, 1000, 0), ("zamba2 window 256", 32, 32, 64, 1536, 256),
        ("zamba2 G4 window 256", 32, 8, 64, 1000, 256)]
     + [("granite-3-2b", 32, 8, 64, S, 0) for S in PROMPT_LENS]
     + [("mixtral-8x22b", 48, 8, 128, S, 4096) for S in (5000, 8192)]
+    + [("phi3-mini-3.8b", 32, 32, 96, 1000, 0), ("nemotron-4-340b", 96, 8, 192, 1000, 0)]
+    + [("reduced configs", 4, 1, 32, 1000, 0), ("reduced configs", 2, 2, 16, 130, 0)]
 )
 
 
 def check_flash_attention() -> dict:
     """The kernel against its plain version (materialised scores) at each
-    case of ATTN_CASES, f32 and bf16, at the reference's bars.  Times it in
-    bf16 at zamba2's heads for each prompt length, at granite-3-2b's for
-    S 1536 (the entry of the kernels line: granite is the slice's main path)
-    and at mixtral-8x22b's for S 8192, beside its bound, the plain version
-    and PyTorch's ``scaled_dot_product_attention`` (which the port never
-    calls)."""
+    case of ATTN_CASES, f32 (CUDA-core route) and bf16 (tensor-core route),
+    at the reference's bars.  Times it in bf16 at zamba2's heads for each
+    prompt length, at granite-3-2b's for S 1536 (the entry of the kernels
+    line: granite is the slice's main path), at mixtral-8x22b's for S 8192
+    and at phi3-mini's and nemotron's for S 1000, beside its bound, the
+    plain version and PyTorch's ``scaled_dot_product_attention`` (which the
+    port never calls)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import attention_ref
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call, route
 
     gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -449,13 +481,16 @@ def check_flash_attention() -> dict:
     torch.cuda.synchronize()
 
     timed = [("zamba2-1.2b", 32, 32, 64, S, 0) for S in PROMPT_LENS]
-    timed += [("granite-3-2b", 32, 8, 64, 1536, 0), ("mixtral-8x22b", 48, 8, 128, 8192, 4096)]
+    timed += [("granite-3-2b", 32, 8, 64, 1536, 0), ("mixtral-8x22b", 48, 8, 128, 8192, 4096),
+              ("phi3-mini-3.8b", 32, 32, 96, 1000, 0), ("nemotron-4-340b", 96, 8, 192, 1000, 0)]
     for label, H, KV, hd, S, window in timed:
         q, k, v = inputs(S, H, KV, hd, torch.bfloat16)
         kw = dict(scale=hd**-0.5, causal=True, window=window)
         got = flash_attention_call(q, k, v, **kw)
         err = float((got.float() - attention_ref(q, k, v, **kw).float()).abs().max())
         ms = _time_ms(lambda: flash_attention_call(q, k, v, **kw))
+        seen, device_ms = _device_kernels(lambda: flash_attention_call(q, k, v, **kw))
+        device = f"{device_ms:.4f} ms" if seen else "not measured"
         flops, nbytes = _attention_work(S, H, KV, hd, window)
         bound_ms, bound_by = _bound_ms(flops, nbytes)
         plain_ms = library_ms = None
@@ -465,8 +500,9 @@ def check_flash_attention() -> dict:
             library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=KV != H))
         print(
-            f"flash_attention bf16 {label} (H {H}, KV {KV}, hd {hd}) S {S} window {window}: "
-            f"kernel {ms:.4f} ms, plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+            f"flash_attention bf16 ({route(torch.bfloat16)} route) {label} (H {H}, KV {KV}, hd {hd}) "
+            f"S {S} window {window}: "
+            f"kernel {ms:.4f} ms (device time alone {device}), plain {'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
             f"scaled_dot_product_attention {'not timed' if library_ms is None else f'{library_ms:.4f} ms'}, "
             f"bound {bound_ms:.4f} ms ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved"
         )
@@ -641,12 +677,13 @@ def _ssd_f64(x, dt, A, Bm, Cm) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def check_mamba2_ssd() -> dict:
     """The kernel against the chunked plain version at zamba2's SSM widths
-    for each prompt length, f32 and bf16, once at mamba2-780m's (N 128), and
-    against the sequential recurrence; timed at the longest prompt in bf16
-    beside its bound and the plain version (no single PyTorch call computes
-    the scan)."""
+    for each prompt length, f32 and bf16, once at mamba2-780m's (N 128) and
+    the reduced configs' (P 32, N 16), and against the sequential
+    recurrence; timed at each prompt length in bf16 beside its bound and the
+    plain version (no single PyTorch call computes the scan), with the block
+    count of each of its three passes."""
     from repro_torch.kernels.mamba2_ssd import ssd_ref_chunked, ssd_ref_sequential
-    from repro_torch.kernels.mamba2_ssd.kernel import ssd_call
+    from repro_torch.kernels.mamba2_ssd.kernel import grid_blocks, route, ssd_call
     from repro_torch.models import get_config
 
     cfg = get_config(ZAMBA2)
@@ -660,14 +697,16 @@ def check_mamba2_ssd() -> dict:
     )
     y_tol = {torch.float32: SSD_Y_TOL_FULL_F32, torch.bfloat16: SSD_Y_TOL[torch.bfloat16]}
     m780 = get_config("mamba2-780m")
-    cases = [(S, H, N) for S in PROMPT_LENS] + [(1000, m780.ssm_nheads, m780.ssm_state)]
+    # zamba2's widths at each prompt length, mamba2-780m's (N 128) and the
+    # reduced configs' (P 32, N 16)
+    cases = [(S, H, P, N) for S in PROMPT_LENS] + [(1000, m780.ssm_nheads, P, m780.ssm_state), (1000, 8, 32, 16)]
     err = 0.0
-    for S, h, n in cases:
+    for S, h, p_, n in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            args = _ssd_inputs(S, h, P, n, dtype, gen)
+            args = _ssd_inputs(S, h, p_, n, dtype, gen)
             y, hT = ssd_call(*args, chunk=min(Q, S))
             y_ref, h_ref = ssd_ref_chunked(*args, chunk=Q)
-            what = f"S {S} H {h} N {n} {dtype}"
+            what = f"S {S} H {h} P {p_} N {n} {dtype}"
             e = _hold(y, y_ref, *y_tol[dtype], what + " y")
             _hold(hT, h_ref, *SSD_H_TOL, what + " final state")
             if (S, h, dtype) == (PROMPT_LENS[-1], H, torch.bfloat16):
@@ -689,6 +728,8 @@ def check_mamba2_ssd() -> dict:
     for S in PROMPT_LENS:
         args = _ssd_inputs(S, H, P, N, torch.bfloat16, gen)
         ms = _time_ms(lambda: ssd_call(*args, chunk=min(Q, S)))
+        seen, device_ms = _device_kernels(lambda: ssd_call(*args, chunk=min(Q, S)))
+        device = f"{device_ms:.4f} ms" if seen else "not measured"
         plain_ms = _time_ms(lambda: ssd_ref_chunked(*args, chunk=Q), launches=5)
         macs = 0.0
         for c0 in range(0, S, Q):
@@ -698,10 +739,14 @@ def check_mamba2_ssd() -> dict:
             macs += q * (q + 1) / 2 * N + H * (q * (q + 1) / 2 * P + 2 * q * P * N)
         nbytes = 2.0 * (2 * S * H * P + 2 * S * N) + 4.0 * (S * H + H + H * P * N)
         bound_ms, bound_by = _bound_ms(2 * macs, nbytes)
+        blocks = grid_blocks(1, S, H, P, N, min(Q, S), torch.bfloat16)
         print(
-            f"mamba2_ssd bf16 S {S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}); {2 * macs / ms / 1e9:.1f} TFLOP/s achieved; "
-            f"{H} blocks on {torch.cuda.get_device_properties(0).multi_processor_count} SMs"
+            f"mamba2_ssd bf16 ({route(torch.bfloat16)} route) S {S}: kernel {ms:.4f} ms (device time "
+            f"alone, three passes {device}), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{2 * macs / ms / 1e9:.1f} TFLOP/s achieved; blocks of the three passes "
+            f"{blocks[0]} / {blocks[1]} / {blocks[2]} on "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs"
         )
     return {  # the longest prompt's
         "name": "mamba2_ssd",
@@ -868,6 +913,29 @@ def print_profile(label: str, prof, wall: float, top_n: int = 6) -> None:
         f"idle share {1 - busy / wall:.4f}; top device ops: "
         + "; ".join(f"{e.key[:60]} {_device_us(e) / 1e3:.3f} ms x{e.count}" for e in top)
     )
+
+
+# the device kernels of each port kernel's launch, by name
+PORT_KERNEL_NAMES = {
+    "flash_attention": ("flash_attention_wgmma", "flash_attention_tc", "flash_attention_fwd"),
+    "mamba2_ssd": ("ssd_states_", "ssd_pass_states", "ssd_outputs_"),
+}
+
+
+def print_kernel_time(label: str, prof) -> None:
+    """One line: each port kernel's device time in the profile, all its
+    device kernels summed (the SSD's three passes are one launch of the
+    wrapper), and each device kernel's own."""
+    parts = []
+    for name, keys in PORT_KERNEL_NAMES.items():
+        ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and any(k in e.key for k in keys)]
+        if ops:
+            by_op = ", ".join(
+                f"{next(k for k in keys if k in e.key).strip('_')} {_device_us(e) / 1e3:.3f} ms x{e.count}" for e in ops
+            )
+            parts.append(f"{name} {sum(_device_us(e) for e in ops) / 1e3:.3f} ms ({by_op})")
+    print(f"kernel time {label}: " + ("; ".join(parts) if parts else "no port kernel"))
 
 
 # ------------------------------------------------------------- serve path
@@ -1201,11 +1269,15 @@ def serve_phase(
         eng.submit(r)
     fa_kernel.launches = 0
     ssd_kernel.launches = 0
+    for counts in (fa_kernel.launches_by_route, ssd_kernel.launches_by_route):
+        counts.update(dict.fromkeys(counts, 0))
     t0 = time.perf_counter()
     results = eng.run_until_drained()
     _sync(device)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa_kernel.launches, "mamba2_ssd": ssd_kernel.launches}
+    by_route = {"flash_attention": dict(fa_kernel.launches_by_route),
+                "mamba2_ssd": dict(ssd_kernel.launches_by_route)}
 
     n = len(requests)
     if len(results) != n or eng.prefills != n:
@@ -1218,6 +1290,10 @@ def serve_phase(
     want = {k: (v * eng.prefills if cuda else 0) for k, v in per_prefill.items()}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for {eng.prefills} prefills")
+    dtype_route = fa_kernel.route(getattr(torch, cfg.dtype))
+    for name, counts in by_route.items():
+        if counts[dtype_route] != launches[name]:
+            raise AssertionError(f"{name}: {counts} by route, not all {launches[name]} on {dtype_route}")
     if cfg.sliding_window:
         T = eng.cache["k"].shape[2]
         if T != cache_len(cfg, max_context) or T != cfg.sliding_window:
@@ -1227,7 +1303,8 @@ def serve_phase(
     peak = f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB" if cuda else "not measured"
     print(
         f"  {eng.prefills} prefills, {eng.decode_steps} decode steps, wall {wall:.3f} s, "
-        f"{generated} tokens generated = {generated / wall:.1f} tokens/s; launches {launches}; "
+        f"{generated} tokens generated = {generated / wall:.1f} tokens/s; launches {launches} "
+        f"(route {dtype_route}); "
         f"peak device memory {peak}"
     )
     print("  prefill ms by prompt length: " + ", ".join(f"{n}: {ms:.2f}" for n, ms in prefill_ms))
@@ -1257,6 +1334,7 @@ def serve_phase(
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
             print_profile(f"{cfg.name} prefill S {profile_len}", prof, wall, top_n=8)
+            print_kernel_time(f"{cfg.name} prefill S {profile_len}", prof)
         del cache
         torch.cuda.empty_cache()
     del params, eng
@@ -1287,6 +1365,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s wall ({built})")
+    mma = count_mma()
     for name in built:
         log = (_build.BUILD_DIR / f"{name}.log")
         if log.exists():
@@ -1332,6 +1411,10 @@ def main(argv=None) -> int:
     attention["launches"] = sum(r["flash_attention"] for r in runs.values())
     attention["launches_by_run"] = {name: r["flash_attention"] for name, r in runs.items()}
     scan["launches"] = runs[ZAMBA2]["mamba2_ssd"]
+    for entry in (gather, dequant, attention, scan):
+        entry["sass_mma"] = mma[entry["name"]]
+    attention["device_route"] = "bf16 on the tensor cores (wgmma, TMA loads), f32 on the CUDA cores"
+    scan["device_route"] = "bf16 on the tensor cores (mma.sync), f32 on the CUDA cores"
     print(json.dumps({"kernels": [gather, dequant, attention, scan]}))
     print(json.dumps({
         "ok": True,

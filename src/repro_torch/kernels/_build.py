@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "load"]
+__all__ = ["BUILD_DIR", "SOURCES", "build", "cuda_tool", "load", "target"]
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
@@ -52,7 +52,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program beside ``nvcc`` (``cuobjdump``)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
+
+
+def target(name: str) -> Path:
+    """The library of kernel ``name`` as its current source builds it."""
     digest = hashlib.sha256(
         SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
@@ -68,27 +74,27 @@ def build(*names: str) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        target = _target(name)
-        if target.exists():
+        path = target(name)
+        if path.exists():
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
             tmp,
-            target,
+            path,
             time.perf_counter(),
         )
     seconds = {name: 0.0 for name in names}
     failures = []
-    for name, (proc, tmp, target, t0) in procs.items():
+    for name, (proc, tmp, path, t0) in procs.items():
         out, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         (BUILD_DIR / f"{name}.log").write_bytes(out)
         if proc.returncode != 0:
             failures.append(f"{name}:\n{out.decode(errors='replace')}")
             continue
-        os.replace(tmp, target)
+        os.replace(tmp, path)
     if failures:
         raise RuntimeError("nvcc failed\n" + "\n".join(failures))
     return seconds
@@ -100,5 +106,5 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build(name)
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+            lib = _libs[name] = ctypes.CDLL(str(target(name)))
         return lib

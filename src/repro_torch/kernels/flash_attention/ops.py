@@ -4,9 +4,9 @@ A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
 launches the kernel or raises.  The kernel reads the model layout directly
 and masks the ragged tail itself, so the reference wrapper's head moves and
 padding have no counterpart.  The kernel's tiles are fixed by the head
-group (``kernel.query_block``) and a 64-key tile; ``q_block`` and
-``k_block`` are accepted for signature parity with the reference and are
-only checked.
+group and the dtype (``kernel.tile_rows``, ``kernel.query_block``) and a
+64-key tile; ``q_block`` and ``k_block`` are accepted for signature parity
+with the reference and are only checked.
 """
 
 from __future__ import annotations

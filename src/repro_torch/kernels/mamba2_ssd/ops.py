@@ -4,9 +4,10 @@
 A CPU tensor takes the plain version (``ref.ssd_ref_chunked``); a CUDA
 tensor launches the kernel or raises.  The kernel masks a ragged last chunk
 itself (the final state equals the unpadded one), so the reference
-wrapper's ``dt = 0`` padding has no counterpart.  The kernel runs one head
-per block; ``head_block`` is accepted for signature parity with the
-reference and is only checked.
+wrapper's ``dt = 0`` padding has no counterpart.  The kernel fixes its own
+head grouping (one head a block for the chunk states, two for the chunk
+outputs on the tensor cores); ``head_block`` is accepted for signature
+parity with the reference and is only checked.
 """
 
 from __future__ import annotations

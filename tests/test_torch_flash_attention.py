@@ -16,7 +16,8 @@ import jax.numpy as jnp
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-from repro_torch.kernels.flash_attention.kernel import query_block
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, check_inputs, query_block, route, tile_rows
+from repro_torch.kernels.flash_attention.ref import attention_bf16_tiled_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -103,7 +104,18 @@ def test_explicit_scale_and_default_scale():
 
 
 def test_query_block_folds_the_head_group_into_64_rows():
+    """A query tile holds G heads at query_block(G, rows) positions, row
+    pos·G + g.  64 rows (one warpgroup of the bf16 wgmma kernel, 256
+    threads x 4 rows of the f32 one): the registry's groups 1, 4, 5
+    (llama4-scout), 6 (mixtral), 8 (internvl2) and 12 (nemotron) use 64,
+    64, 60, 60, 64 and 60 rows.  128 rows (two consumer warpgroups): bf16
+    with 4 or more heads a KV head."""
     assert [query_block(g) for g in (1, 2, 4, 32, 64, 128)] == [64, 32, 16, 2, 1, 1]
+    assert [query_block(g) for g in (5, 6, 8, 12)] == [12, 10, 8, 5]
+    assert [g * query_block(g) for g in (1, 4, 5, 6, 8, 12)] == [64, 64, 60, 60, 64, 60]
+    assert [g * query_block(g, 128) for g in (4, 5, 6, 8, 12)] == [128, 125, 126, 128, 120]
+    assert [tile_rows(torch.bfloat16, g) for g in (1, 2, 4, 5, 12)] == [64, 64, 128, 128, 128]
+    assert {tile_rows(torch.float32, g) for g in (1, 4, 12)} == {64}
 
 
 def test_bad_arguments_raise_like_the_reference():
@@ -121,3 +133,70 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     q = torch.empty((1, 64, 2, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
+
+
+# ------------------------------------------------ the tensor-core route on the CPU
+@pytest.mark.parametrize(
+    "B,S,H,KV,hd,window",
+    [
+        (2, 128, 4, 4, 32, 0),     # MHA
+        (1, 256, 8, 2, 64, 0),     # GQA 4:1
+        (2, 192, 4, 1, 32, 0),     # MQA, S not a block multiple
+        (1, 256, 4, 2, 32, 64),    # sliding window
+        (1, 64, 2, 2, 16, 0),      # tiny
+    ],
+)
+def test_bf16_tiled_emulation_matches_reference_oracle(B, S, H, KV, hd, window):
+    """The bf16 kernel's numerics (64-key online softmax, P rounded to bf16
+    before P·V) against the reference's plain version on the reference's
+    shapes, at its bf16 bar (tests/test_kernels.py:25-26)."""
+    (jq, jk, jv), (q, k, v) = _inputs((B, S, H, hd), (B, S, KV, hd), "bfloat16", seed=0)
+    got = attention_bf16_tiled_ref(q, k, v, window=window)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, S, H, hd)
+    np.testing.assert_allclose(_f32(got), _f32(jax_attention_ref(jq, jk, jv, window=window)), **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("hd,H,KV", [(96, 4, 4), (192, 12, 1)])
+def test_bf16_tiled_emulation_at_the_new_head_widths(hd, H, KV):
+    """phi3-mini's head width (96) and nemotron's (192, 12 query heads a KV
+    head), with a ragged S, against the reference's plain version."""
+    (jq, jk, jv), (q, k, v) = _inputs((1, 130, H, hd), (1, 130, KV, hd), "bfloat16", seed=5)
+    np.testing.assert_allclose(
+        _f32(attention_bf16_tiled_ref(q, k, v)), _f32(jax_attention_ref(jq, jk, jv)), **_tol("bfloat16")
+    )
+
+
+def test_route_follows_the_dtype():
+    assert route(torch.bfloat16) == "tensor_core"
+    assert route(torch.float32) == "cuda_core"
+    with pytest.raises(TypeError):
+        route(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launcher_checks_accept_every_built_width(dtype):
+    for hd in HEAD_DIMS:
+        q = torch.zeros((1, 8, 12, hd), dtype=dtype)
+        kv = torch.zeros((1, 8, 1, hd), dtype=dtype)
+        assert check_inputs(q, kv, kv, window=4) == (1, 8, 12, 1, hd)
+
+
+def test_launcher_checks_refuse_what_the_kernel_does_not_take():
+    kv = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
+    for hd in (8, 80, 256):  # widths not built
+        w = torch.zeros((1, 8, 1, hd), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="hd"):
+            check_inputs(torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16), w, w)
+    with pytest.raises(ValueError):  # 65 query heads on one KV head exceed a 64-row tile
+        check_inputs(torch.zeros((1, 8, 65, 64), dtype=torch.bfloat16), kv, kv)
+    with pytest.raises(TypeError):
+        check_inputs(torch.zeros((1, 8, 2, 64)), kv, kv)  # mixed dtypes
+    with pytest.raises(TypeError):
+        half = torch.zeros((1, 8, 1, 64), dtype=torch.float16)
+        check_inputs(half.expand(1, 8, 1, 64).clone(), half, half)
+    with pytest.raises(ValueError, match="contiguous"):
+        q = torch.zeros((1, 8, 64, 2), dtype=torch.bfloat16).transpose(2, 3)
+        check_inputs(q, kv, kv)
+    with pytest.raises(ValueError, match="16-byte"):  # a bf16 view 2 bytes off
+        flat = torch.zeros(8 * 2 * 64 + 1, dtype=torch.bfloat16)
+        check_inputs(flat[1:].view(1, 8, 2, 64), kv, kv)

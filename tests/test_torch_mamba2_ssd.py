@@ -18,6 +18,8 @@ from repro.kernels.mamba2_ssd import ssd as jax_ssd
 from repro.kernels.mamba2_ssd import ssd_ref_chunked as jax_ref_chunked
 from repro.kernels.mamba2_ssd import ssd_ref_sequential as jax_ref_sequential
 from repro_torch.kernels.mamba2_ssd import ssd, ssd_ref_chunked, ssd_ref_sequential
+from repro_torch.kernels.mamba2_ssd.kernel import WIDTHS, check_inputs, grid_blocks, route, scratch_shapes
+from repro_torch.kernels.mamba2_ssd.ref import ssd_ref_three_pass
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -123,3 +125,85 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     Bm = torch.empty((1, 32, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ssd(x, dt, A, Bm, Bm, chunk=16)
+
+
+# -------------------------------------------- the kernel's three passes on the CPU
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize(
+    "B,S,H,P,N,chunk",
+    [
+        (2, 128, 4, 16, 32, 32),
+        (1, 256, 8, 32, 64, 64),
+        (1, 96, 6, 16, 16, 32),   # several chunks, H odd
+        (2, 64, 2, 8, 16, 64),    # single chunk
+        (1, 100, 3, 8, 16, 32),   # ragged last chunk (100 = 3 x 32 + 4)
+    ],
+)
+def test_three_pass_emulation_matches_reference_oracle(B, S, H, P, N, chunk, dtype):
+    """Chunk states -> state passing -> chunk outputs with the bf16 route's
+    operand roundings, against the reference's chunked oracle at its bars
+    (tests/test_kernels.py:97-99: y 5e-2 bf16 / 2e-4 f32, h 1e-3)."""
+    j, t = _inputs(B, S, H, P, N, dtype, seed=3)
+    y, h = ssd_ref_three_pass(*t, chunk=chunk)
+    assert y.dtype == t[0].dtype and h.dtype == torch.float32
+    assert tuple(y.shape) == (B, S, H, P) and tuple(h.shape) == (B, H, P, N)
+    tol = dict(rtol=5e-2, atol=5e-2) if dtype == "bfloat16" else dict(rtol=2e-4, atol=2e-4)
+    y_ref, h_ref = jax_ref_chunked(*j, chunk=chunk)
+    np.testing.assert_allclose(_f32(y), _f32(y_ref), **tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (100, 32)])
+def test_three_pass_emulation_matches_sequential_oracle(S, chunk):
+    """The reference's sequential recurrence at its bars
+    (tests/test_kernels.py:103-115)."""
+    j, t = _inputs(1, S, 2, 8, 16, "float32", seed=4)
+    y, h = ssd_ref_three_pass(*t, chunk=chunk)
+    y_seq, h_seq = jax_ref_sequential(*j)
+    np.testing.assert_allclose(_f32(y), _f32(y_seq), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h.numpy(), _f32(h_seq), rtol=1e-3, atol=1e-3)
+
+
+def test_route_follows_the_dtype():
+    assert route(torch.bfloat16) == "tensor_core"
+    assert route(torch.float32) == "cuda_core"
+    with pytest.raises(TypeError):
+        route(torch.float16)
+
+
+def test_scratch_and_blocks_at_zamba2s_prefill():
+    """zamba2-1.2b, S 1536, chunk 256: 6 chunks.  Pass 1 runs 6 x 64 blocks
+    (one per chunk and head, against 64 for the whole scan before); pass 3
+    in bf16 one per 64-step query tile, chunk and head pair.  The f32
+    scratch: 6.3 MB of chunk states."""
+    shapes = scratch_shapes(1, 1536, 64, 64, 64, 256)
+    assert shapes == {"cs": (1, 64, 1536), "states": (1, 6, 64, 64, 64), "decay": (1, 6, 64)}
+    assert 4 * np.prod(shapes["states"]) == 6_291_456
+    assert grid_blocks(1, 1536, 64, 64, 64, 256, torch.bfloat16) == (384, 1024, 768)
+    assert grid_blocks(1, 1536, 64, 64, 64, 256, torch.float32) == (384, 1024, 384)
+    # a ragged S: ceil(1000 / 256) = 4 chunks
+    assert scratch_shapes(2, 1000, 48, 64, 128, 256)["states"] == (2, 4, 48, 64, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launcher_checks_accept_every_built_width(dtype):
+    for P, N in WIDTHS:
+        _, (x, dt, A, Bm, Cm) = _inputs(1, 40, 3, P, N, "float32", seed=8)
+        x, Bm, Cm = (a.to(dtype) for a in (x, Bm, Cm))
+        assert check_inputs(x, dt, A, Bm, Cm, chunk=16) == (1, 40, 3, P, N)
+
+
+def test_launcher_checks_refuse_what_the_kernel_does_not_take():
+    _, (x, dt, A, Bm, Cm) = _inputs(1, 40, 3, 64, 32, "bfloat16", seed=9)
+    with pytest.raises(ValueError, match="built for"):  # (64, 32) is not built
+        check_inputs(x, dt, A, Bm, Cm, chunk=16)
+    _, (x, dt, A, Bm, Cm) = _inputs(1, 40, 3, 64, 64, "bfloat16", seed=9)
+    with pytest.raises(ValueError, match="chunk"):
+        check_inputs(x, dt, A, Bm, Cm, chunk=41)
+    with pytest.raises(TypeError):
+        check_inputs(x, dt.bfloat16(), A, Bm, Cm, chunk=16)
+    with pytest.raises(TypeError):
+        check_inputs(x, dt, A, Bm.float(), Cm, chunk=16)
+    flat = torch.zeros(40 * 64 + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):  # B 2 bytes off
+        check_inputs(x, dt, A, flat[1:].view(1, 40, 64), Cm, chunk=16)
