@@ -25,12 +25,25 @@
    tier must match a workspace without it bitwise at every edit, and match a
    numpy computation of the same function; warm edits must upload at least
    5x fewer host->device bytes and go through the gather's tiled path.
-4. Consistency phase, f32, prefill logits with the kernels on against off
+4. Service path: the multi-tenant ``PipelineService(workers=4)`` over the
+   same 2^24-row table, one device tier attached to both shared stores,
+   running BENCH_4's four-stage project with ``feats`` on torch.  t0 fills
+   [0, 0.8R] cold; t1 (widened to [0, R]), t2 (nested, [0, 0.6R]) and t3
+   (two disjoint windows inside t0's, gathered by ``fragment_gather``) are
+   submitted together.  Every run must end DONE, equal bitwise a fresh
+   no-tier cold service of its own and numpy, and, warm, move at least 3x
+   fewer object-store bytes than cold; t2 and t3 must hit the tier.  Then
+   BENCH_5 on the same spill-backed service: a clean shutdown and a restart
+   over its root replaying t0..t3 (at least 5x fewer store bytes, bitwise),
+   and four tenants submitting one pipeline together (0 duplicate
+   user-function rows).  The explain CLI's 11-edit matrix then runs on the
+   card and must diagnose 11 of 11 causes.
+5. Consistency phase, f32, prefill logits with the kernels on against off
    within 2e-3: zamba2-1.2b and granite-3-2b at full width and depth (greedy
    engine runs agree token for token up to a near-tie), and mixtral-8x22b at
    full width with its depth cut to 2 of 56 layers at S 8192 (a difference
    beyond the bar must trace to a router near-tie).
-5. Serve paths, bf16, kernels on, each with its launch counts set to 0 just
+6. Serve paths, bf16, kernels on, each with its launch counts set to 0 just
    before the run and read just after: zamba2-1.2b and granite-3-2b at full
    width and depth behind ``ServeEngine(slots=4, max_context=2048)``, eight
    requests of 256-1536 prompt tokens and 32 new tokens each (every prefill
@@ -41,8 +54,9 @@
    cache.
 
 Prints the card, the build time, the kernel checks and timings, each edit's
-wall time, the serve runs' timings and profiles, a ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``.  Any failure raises
+wall time, each tenant's ledger, the service's profile and spans, the serve
+runs' timings and profiles, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises
 (non-zero exit).  Exits non-zero without a CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--rows N] [--frag N]
@@ -866,6 +880,307 @@ def main_path(rows: int, frag: int, workdir: str, device: str = "cuda") -> Dict:
     return result
 
 
+# ----------------------------------------------------------- service path
+def iteration_project(
+    hi: int = 0,
+    windows: Optional[List[Tuple[int, int]]] = None,
+    columns=("v1", "v2"),
+    gain: float = 1.0,
+    materialize: bool = False,
+) -> Project:
+    """BENCH_4's four-stage pipeline (``benchmarks/workloads.py``'s
+    ``iteration_project``) with ``feats`` on torch: cleaned (numpy, drops
+    ``flag == 0``) -> enriched (numpy, adds ``mag``) -> feats (torch) ->
+    final (numpy, gain-scaled).  The key window is ``[0, hi]`` (the
+    reference's filter text) or, when given, the union of the half-open
+    ``windows``."""
+    where = where_of(windows) if windows else f"eventTime BETWEEN 0 AND {hi}"
+    p = Project("iteration")
+    cols = list(columns)
+
+    @model(project=p, incremental="rowwise")
+    @runtime("numpy")
+    def cleaned(data=Model(EVENTS_TABLE, columns=cols + ["flag"], filter=where)):
+        return data.filter(data.column("flag") > 0)
+
+    @model(project=p, incremental="rowwise")
+    @runtime("numpy")
+    def enriched(data=Model("cleaned")):
+        out = {n: data.column(n) for n in data.column_names}
+        feats = [data.column(c) for c in data.column_names if c.startswith("v")]
+        out["mag"] = np.sqrt(sum(f * f for f in feats))
+        return out
+
+    @model(project=p, incremental="rowwise")
+    @runtime("torch")
+    def feats(data=Model("enriched")):
+        return {
+            k: (torch.where(v >= 0, v, v * 0.5) if v.is_floating_point() else v)
+            for k, v in data.items()
+        }
+
+    @model(project=p, incremental="rowwise", materialize=materialize)
+    @runtime("numpy")
+    def final(data=Model("feats")):
+        out = {n: data.column(n) for n in data.column_names}
+        out["score"] = gain * np.asarray(data.column("mag"), dtype=np.float64)
+        return out
+
+    return p
+
+
+def service_tenants(rows: int, frag: int) -> List[Tuple[str, str, dict]]:
+    """BENCH_4's tenants (``benchmarks/bench4_service.py``) and one that
+    splits its window: ``(tenant, kind, iteration_project kwargs)``.  t3's two
+    windows are aligned to ``frag`` and lie inside t0's."""
+    q = lambda f: int(f * rows) // frag * frag
+    return [
+        ("t0", "cold fill", dict(hi=int(0.8 * rows))),
+        ("t1", "widened", dict(hi=rows)),
+        ("t2", "nested", dict(hi=int(0.6 * rows))),
+        ("t3", "split", dict(windows=[(0, q(0.2)), (q(0.4), q(0.7))])),
+    ]
+
+
+def expected_final(raw: Dict[str, np.ndarray], hi: int = 0, windows=None) -> Dict[str, np.ndarray]:
+    """``final``'s output computed in numpy from the generated rows, with
+    the torch node's x32 narrowing of its inputs (the executor keeps the
+    sort key's own width)."""
+    keys = raw["eventTime"]
+    if windows:
+        mask = np.zeros(keys.shape[0], bool)
+        for lo, hi_ in windows:
+            mask |= (keys >= lo) & (keys < hi_)
+    else:
+        mask = (keys >= 0) & (keys <= hi)
+    mask &= raw["flag"] > 0
+    v1, v2 = raw["v1"][mask], raw["v2"][mask]
+    half = np.float32(0.5)
+    relu = lambda v: np.where(v >= 0, v, v * half)
+    out = {
+        "eventTime": keys[mask],
+        "flag": raw["flag"][mask].astype(np.int32),
+        "v1": relu(v1.astype(np.float32)),
+        "v2": relu(v2.astype(np.float32)),
+        "mag": relu(np.sqrt(0 + v1 * v1 + v2 * v2).astype(np.float32)),
+    }
+    out["score"] = out["mag"].astype(np.float64)
+    return out
+
+
+def _same_outputs(a, b, what: str) -> None:
+    """Every output table of two runs, bitwise."""
+    if set(a.outputs) != set(b.outputs):
+        raise AssertionError(f"{what}: outputs {sorted(a.outputs)} != {sorted(b.outputs)}")
+    for name, table in a.outputs.items():
+        other = b.outputs[name]
+        if table.column_names != other.column_names:
+            raise AssertionError(f"{what}:{name} columns differ")
+        for col in table.column_names:
+            x, y = np.asarray(table.column(col)), np.asarray(other.column(col))
+            if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+                raise AssertionError(f"{what}:{name}:{col} differs")
+
+
+def _check_final(res, raw, kw: dict, what: str) -> None:
+    final = res.outputs["final"]
+    want = expected_final(raw, **kw)
+    if sorted(final.column_names) != sorted(want):
+        raise AssertionError(f"{what}: final columns {final.column_names}")
+    for col, arr in want.items():
+        got = np.asarray(final.column(col))
+        if got.dtype != arr.dtype or not np.array_equal(got, arr):
+            raise AssertionError(f"{what}: final != numpy at {col}")
+
+
+def _attach_tier(svc, device) -> None:
+    """One device tier behind both shared stores, before the first session."""
+    from repro_torch.core.device import DeviceTier
+
+    svc.scan_cache.device = svc.model_store.device = DeviceTier(device=device)
+
+
+def _raise_unless_done(handle) -> None:
+    """A run that did not end DONE re-raises its exception: the scheduler
+    isolates failures, so none may pass quietly."""
+    from repro_torch.service import DONE
+
+    if handle.state != DONE:
+        raise handle.error or AssertionError(f"run {handle.run_id} ended {handle.state}")
+
+
+def _run_tenants(svc, tenants) -> Dict[str, Tuple[object, float]]:
+    """BENCH_4's discipline: t0 alone (the fill), then the rest submitted
+    together.  Returns tenant -> (result, wall seconds)."""
+    name, _kind, kw = tenants[0]
+    t = time.perf_counter()
+    first = svc.session(name).run(iteration_project(**kw))
+    out = {name: (first, time.perf_counter() - t)}
+    handles = [svc.submit(n, iteration_project(**kw)) for n, _k, kw in tenants[1:]]
+    svc.drain()
+    for h in handles:
+        _raise_unless_done(h)
+        out[h.tenant] = (h.result, h.wall_seconds)
+    return out
+
+
+def service_phase(rows: int, frag: int, workdir: str, device: str = "cuda") -> Dict:
+    """The multi-tenant service over one device tier: BENCH_4's tenants
+    (and t3, which splits its window) on a spill-backed
+    ``PipelineService(workers=4)``, each held bitwise against a fresh
+    no-tier cold service of its own and against numpy, with BENCH_4's >= 3x
+    store-byte gate per warm tenant; then BENCH_5 on the same service: a
+    clean shutdown and a restart over its root replaying t0..t3 (>= 5x
+    fewer store bytes, bitwise), and four tenants submitting one pipeline
+    together (0 duplicate user-function rows).  Raises at the first failed
+    gate; the caller gates the kernel launches."""
+    from repro_torch.kernels.fragment_gather import kernel
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.service import PipelineService
+    from repro_torch.trace import summarize
+
+    cuda = torch.device(device).type == "cuda"
+    tenants = service_tenants(rows, frag)
+    raw = {c: events(rows).column(c) for c in ("eventTime", "v1", "v2", "flag")}
+
+    def service(root, **kw):
+        return PipelineService(root, rows_per_fragment=frag, torch_device=device, **kw)
+
+    # cold references: one lake, and a fresh no-tier service per tenant
+    cold = {}
+    cold_root = os.path.join(workdir, "cold")
+    for i, (name, _kind, kw) in enumerate(tenants):
+        with service(cold_root, workers=1) as svc:
+            if i == 0:
+                write_events(svc.catalog, rows)
+            t = time.perf_counter()
+            res = svc.session(name).run(iteration_project(**kw))
+            cold[name] = (res, time.perf_counter() - t)
+        _check_final(res, raw, kw, f"cold {name}")
+
+    root = os.path.join(workdir, "shared")
+    tracer = Tracer()
+    kernel.launches = 0
+    with service(root, workers=4, spill=True, tracer=tracer) as svc:
+        _attach_tier(svc, device)
+        write_events(svc.catalog, rows)
+        before = svc.store.stats.snapshot()
+        warm = _run_tenants(svc, tenants)
+        first_bytes = svc.store.stats.delta(before).bytes_read
+        launches = kernel.launches
+        tenant_rows = {}
+        for name, kind, kw in tenants:
+            res, wall = warm[name]
+            cres, cwall = cold[name]
+            _same_outputs(res, cres, f"{name} vs its cold service")
+            _check_final(res, raw, kw, name)
+            ratio = cres.bytes_from_store / max(res.bytes_from_store, 1)
+            tenant_rows[name] = {
+                "kind": kind, "wall": wall, "cold_wall": cwall,
+                "bytes_from_store": int(res.bytes_from_store),
+                "cold_bytes_from_store": int(cres.bytes_from_store), "bytes_ratio": ratio,
+                **_ledger(res),
+            }
+            r = tenant_rows[name]
+            print(
+                f"service {name} ({kind}): wall {wall:.4f} s (cold {cwall:.4f} s), "
+                f"store bytes {r['bytes_from_store']} vs cold {r['cold_bytes_from_store']} "
+                f"({ratio:.3f}x), rows_to_user_fns {r['rows_to_user_fns']} (cold "
+                f"{int(cres.rows_to_user_fns)}), h2d {r['bytes_h2d']} B, device_hits "
+                f"{r['device_hits']}, gather fast/fb {r['gather_fast']}/{r['gather_fallbacks']}, bitwise ok"
+            )
+            if name != tenants[0][0] and ratio < 3:
+                raise AssertionError(f"{name}: store bytes only {ratio:.3f}x under its cold run")
+        for name in ("t2", "t3"):
+            if tenant_rows[name]["device_hits"] < 1:
+                raise AssertionError(f"{name} was served nothing from the device tier")
+        stats = svc.model_store.stats()
+        print(
+            f"service cross_tenant_hits model {stats['cross_tenant_hits']} scan "
+            f"{svc.scan_cache.stats()['cross_tenant_hits']}; tier {svc.model_store.device.stats()}"
+        )
+        t3 = [sp for sp in tracer.roots() if sp.attrs.get("tenant") == "t3"]
+        print("spans of t3:\n" + summarize(t3))
+        if cuda:
+            # one more warm run of t3, profiled; after the launches were read
+            from torch.profiler import ProfilerActivity, profile
+
+            split = next(kw for n, _k, kw in tenants if n == "t3")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                svc.session("t3").run(iteration_project(**split))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            print_profile("service t3 warm", prof, wall)
+
+    # BENCH_5: restart over the same root with a new tier, replay t0..t3
+    t = time.perf_counter()
+    with service(root, workers=4, spill=True) as svc:
+        _attach_tier(svc, device)
+        restored = svc.model_store.spill_restored + svc.scan_cache.spill_restored
+        again = _run_tenants(svc, tenants)
+        restart_wall = time.perf_counter() - t
+        restart_bytes = svc.store.stats.bytes_read
+        promotions = svc.model_store.stats()["promotions"]
+        for name, _kind, _kw in tenants:
+            _same_outputs(again[name][0], warm[name][0], f"restart {name}")
+    restart_ratio = first_bytes / max(restart_bytes, 1)
+    print(
+        f"service restart: store bytes {restart_bytes} vs {first_bytes} before "
+        f"({restart_ratio:.3f}x), {restored} elements restored, {promotions} promotions, "
+        f"rows_to_user_fns {sum(int(r.rows_to_user_fns) for r, _w in again.values())}, "
+        f"wall {restart_wall:.4f} s, bitwise ok"
+    )
+    if restart_ratio < 5:
+        raise AssertionError(f"restart moved only {restart_ratio:.3f}x fewer store bytes")
+
+    # BENCH_5: four tenants submit the identical pipeline together
+    single, _w = cold[tenants[0][0]]
+    with service(os.path.join(workdir, "coalesced"), workers=4) as svc:
+        _attach_tier(svc, device)
+        write_events(svc.catalog, rows)
+        kw = tenants[0][2]
+        handles = [svc.submit(n, iteration_project(**kw)) for n, _k, _kw in tenants]
+        svc.drain()
+        for h in handles:
+            _raise_unless_done(h)
+            _same_outputs(h.result, single, f"coalesced {h.tenant}")
+        total = sum(int(h.result.rows_to_user_fns) for h in handles)
+        waits = svc.model_store.coalesced_waits + svc.scan_cache.coalesced_waits
+    duplicate = total - int(single.rows_to_user_fns)
+    print(
+        f"service coalesced x{len(handles)}: rows_to_user_fns {total} vs one run "
+        f"{int(single.rows_to_user_fns)}, duplicates {duplicate}, coalesced waits {waits}, bitwise ok"
+    )
+    if duplicate != 0:
+        raise AssertionError(f"{duplicate} duplicate user-function rows when coalesced")
+    return {
+        "rows": rows,
+        "frag": frag,
+        "launches": launches,
+        "tenants": tenant_rows,
+        "cross_tenant_hits": stats["cross_tenant_hits"],
+        "restart_ratio": restart_ratio,
+        "duplicate_rows": duplicate,
+    }
+
+
+def explain_phase(workdir: str, device: str = "cuda") -> int:
+    """The explain CLI's 11-edit matrix on ``device``; raises unless every
+    diagnosed cause is the one the edit injected."""
+    from repro_torch.explain import edit_matrix_demo
+
+    results = edit_matrix_demo(workdir, device=device)
+    ok = sum(expected == got for _label, expected, got, _res in results)
+    print(f"explain on {device}: {ok}/{len(results)} causes diagnosed correctly")
+    if ok != len(results):
+        raise AssertionError(
+            "explain: " + ", ".join(f"{l} {e}!={g}" for l, e, g, _r in results if e != g)
+        )
+    return ok
+
+
 def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total", 0) or 0)
 
@@ -1392,7 +1707,14 @@ def main(argv=None) -> int:
         raise AssertionError("the main path never took the gather's tiled path")
     if result["launches"] < 1:
         raise AssertionError("the main path never launched fragment_gather")
-    gather["launches"] = result["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        service = service_phase(args.rows, args.frag, tmp)
+    if service["launches"] < 1:
+        raise AssertionError("the service phase never launched fragment_gather")
+    gather["launches"] = result["launches"] + service["launches"]
+    gather["launches_by_path"] = {"main": result["launches"], "service": service["launches"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        explain_phase(tmp)
 
     f32 = dict(dtype="float32", kernels=False)
     consistency_phase(model_config(ZAMBA2, **f32), (512, 1000), greedy=True)

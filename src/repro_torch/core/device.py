@@ -89,12 +89,17 @@ _X32 = {
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     """``None`` means the CUDA card.  A CUDA device without a card raises —
-    the port never carries on silently on the CPU."""
+    the port never carries on silently on the CPU.  A CUDA device without an
+    index is the current card, so ``"cuda"`` and ``"cuda:0"`` resolve to the
+    same device when card 0 is current."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

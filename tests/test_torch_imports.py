@@ -51,6 +51,8 @@ COPIES = [
     "core/intervals.py",
     "core/scan.py",
     "core/spill.py",
+    "dist/__init__.py",
+    "dist/fault.py",
     "lake/__init__.py",
     "lake/catalog.py",
     "lake/faults.py",
@@ -64,6 +66,11 @@ COPIES = [
     "pipeline/dag.py",
     "pipeline/filters.py",
     "pipeline/physical.py",
+    "service/__init__.py",
+    "service/session.py",
+    "service/store.py",
+    "lint.py",
+    "trace.py",
 ]
 
 
@@ -182,10 +189,12 @@ def test_copied_module_matches_reference(rel):
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
+    from repro_torch import explain
     from repro_torch.core.device import DeviceTier
     from repro_torch.models import get_config, get_model
     from repro_torch.pipeline.executor import Workspace
     from repro_torch.serve import ServeEngine
+    from repro_torch.service import PipelineService
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -196,6 +205,13 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
         Workspace(str(tmp_path / "b"), device=True)
     assert DeviceTier(device="cpu").device == torch.device("cpu")
     assert Workspace(str(tmp_path / "c"), torch_device="cpu").torch_device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PipelineService(str(tmp_path / "d"))
+    with PipelineService(str(tmp_path / "e"), torch_device="cpu") as svc:
+        assert svc.torch_device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        explain.main(["--root", str(tmp_path / "f")])
+    assert explain.main(["--root", str(tmp_path / "g"), "--device", "cpu", "--check"]) == 0
 
     api = get_model(get_config("mamba2-780m").reduced())
     gen = torch.Generator().manual_seed(0)
@@ -213,6 +229,27 @@ def test_torch_device_must_match_the_tier(tmp_path):
 
     with pytest.raises(ValueError):
         Workspace(str(tmp_path), device=DeviceTier(device="cpu"), torch_device="meta")
+
+
+def test_index_less_cuda_is_the_current_card(monkeypatch, tmp_path):
+    """``"cuda"`` resolves to the current card, so a workspace given
+    ``torch_device="cuda:0"`` agrees with a tier built on ``"cuda"`` (a
+    service threads one device into workspaces whose stores carry a tier)."""
+    from repro_torch.core.device import DeviceTier, resolve_device
+    from repro_torch.pipeline.executor import Workspace
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device("cuda") == resolve_device("cuda:0") == torch.device("cuda", 0)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    ws = Workspace(str(tmp_path), device=DeviceTier(device="cuda"), torch_device="cuda:0")
+    assert ws.torch_device == torch.device("cuda", 0)
+    with pytest.raises(ValueError):
+        Workspace(str(tmp_path / "b"), device=DeviceTier(device="cuda"), torch_device="cuda:1")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert resolve_device("cuda") == torch.device("cuda", 1)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys):

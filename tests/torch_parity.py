@@ -1,6 +1,7 @@
 """Parity harness for the PyTorch port: one seeded catalog history replayed
-into twin lakes, one reference (jax) and one port (torch) workspace, and a
-run-by-run comparison of outputs (bitwise) and ledgers (equal).
+into twin lakes, one reference (jax) and one port (torch) workspace or
+pipeline service, and a run-by-run comparison of outputs (bitwise) and
+ledgers (equal).
 
 The reference's device tier runs its Pallas kernel in interpret mode; the
 port's runs on the CPU, where its gathers take the kernel's plain version.
@@ -19,13 +20,17 @@ from chip_smoke import write_events as port_write_events
 from repro.core.columnar import Table as RefTable
 from repro.core.device import DeviceTier as RefTier
 from repro.pipeline.executor import Workspace as RefWorkspace
+from repro.service import PipelineService as RefService
 from repro_torch.core.columnar import Table as PortTable
 from repro_torch.core.device import DeviceTier as PortTier
 from repro_torch.pipeline.executor import Workspace as PortWorkspace
+from repro_torch.service import PipelineService as PortService
 
 __all__ = [
     "LEDGER_KEYS",
+    "SERVICE_KEYS",
     "TwinLakes",
+    "TwinServices",
     "assert_same_bits",
     "assert_tables_bitwise",
     "ledger",
@@ -43,6 +48,15 @@ LEDGER_KEYS = (
     "gather_fallbacks",
     "device_union_bytes",
     "rows_to_user_fns",
+)
+
+
+# the per-run store ledger of a service run (BENCH_4's columns)
+SERVICE_KEYS = (
+    "bytes_from_store",
+    "rows_to_user_fns",
+    "bytes_from_model_cache",
+    "bytes_from_cache",
 )
 
 
@@ -102,6 +116,55 @@ class TwinLakes:
             assert_tables_bitwise(rres.outputs[name], pres.outputs[name], f"{what}:{name}")
         assert ledger(pres) == ledger(rres), what
         return rres, pres
+
+
+class TwinServices:
+    """A reference and a port ``PipelineService`` over two lakes with one
+    history; the port runs its torch nodes on the CPU.
+
+    ``tiers=True`` attaches one device tier to both shared stores of each
+    service before the first session (reference: interpret mode; port: the
+    CPU).  ``run`` runs a project pair through one tenant's session on each
+    side and asserts bitwise-equal outputs and equal store and device
+    ledgers.  Use as a context manager."""
+
+    def __init__(self, root: str, *, rows_per_fragment: int, tiers: bool = False, **kw):
+        self.ref = RefService(
+            os.path.join(root, "ref"), rows_per_fragment=rows_per_fragment, **kw
+        )
+        self.port = PortService(
+            os.path.join(root, "port"), rows_per_fragment=rows_per_fragment,
+            torch_device="cpu", **kw,
+        )
+        if tiers:
+            for svc, tier in ((self.ref, RefTier(interpret=True)), (self.port, PortTier(device="cpu"))):
+                svc.scan_cache.device = svc.model_store.device = tier
+
+    def write_events(self, rows: int, seed: int = 0, lo: int = 0) -> None:
+        ref_write_events(self.ref.catalog, rows, seed=seed, lo=lo)
+        port_write_events(self.port.catalog, rows, seed=seed, lo=lo)
+
+    def run(self, tenant: str, ref_project, port_project, what: str = "") -> Tuple:
+        rres = self.ref.session(tenant).run(ref_project)
+        pres = self.port.session(tenant).run(port_project)
+        assert set(rres.outputs) == set(pres.outputs), what
+        for name in rres.outputs:
+            assert_tables_bitwise(rres.outputs[name], pres.outputs[name], f"{what}:{name}")
+        keys = LEDGER_KEYS + SERVICE_KEYS
+        assert {k: int(getattr(pres, k)) for k in keys} == {
+            k: int(getattr(rres, k)) for k in keys
+        }, what
+        return rres, pres
+
+    def shutdown(self) -> None:
+        self.ref.shutdown()
+        self.port.shutdown()
+
+    def __enter__(self) -> "TwinServices":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
 
 
 # ------------------------------------------------------------------ models
