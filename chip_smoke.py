@@ -52,10 +52,21 @@
    ``ServeEngine(slots=2, max_context=8192)``, two greedy prompts of 5000
    and 6500 tokens past its window, 16 new tokens each, on a 4096-slot ring
    cache.
+7. Training path, with the model kernels' launch counts set to 0 before it
+   and still 0 after it (training takes the plain versions: the kernels
+   have no backward): (a) ``repro_torch.launch.train.main`` trains
+   granite-3-2b at its published size (bf16, AdamW with an f32 master, two
+   microbatches, full remat) for 8 steps of 4 x 1024 tokens on a
+   lakehouse corpus of two steps served by the differential cache: finite
+   losses that fall, store bytes flat after epoch 1; (b) one f32 step of
+   granite at full width with 2 of 40 layers, card against CPU; (c) a
+   checkpoint round trip at that size in bf16, bitwise; (d) 4 steps of
+   EF-int8 compressed gradients at that size.
 
 Prints the card, the build time, the kernel checks and timings, each edit's
 wall time, each tenant's ledger, the service's profile and spans, the serve
-runs' timings and profiles, a ``{"kernels": [...]}`` line and, last,
+runs' timings and profiles, the training numbers (ms per step, tokens/s,
+peak memory, a profiled step), a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises
 (non-zero exit).  Exits non-zero without a CUDA card.
 
@@ -1658,6 +1669,259 @@ def serve_phase(
     return launches
 
 
+# ---------------------------------------------------------------- training
+TRAIN_ARGS = ["--arch", GRANITE, "--steps", "8", "--batch", "4", "--seq", "1024"]
+CUT_LAYERS = 2  # parts b-d: granite's full width, depth cut to 2 of 40 layers
+
+
+def _launch_counts() -> Dict[str, int]:
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
+
+    return {"flash_attention": fa_kernel.launches, "mamba2_ssd": ssd_kernel.launches}
+
+
+def _zero_launch_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
+
+    fa_kernel.launches = 0
+    ssd_kernel.launches = 0
+
+
+def launch_phase(workdir: str, args: List[str], device="cuda") -> Dict[str, float]:
+    """Part a: ``repro_torch.launch.train.main`` as a user runs it, with the
+    last step profiled.  Every loss and gradient norm finite, the last loss
+    below the first, the object-store bytes flat from the end of step 2 on
+    (the launcher's corpus holds two steps, so steps 3-8 are epochs 2-4,
+    served by the differential cache).  Prints ms per step (median of steps
+    2-7, with min and max: step 1 warms up, and the profiler's collection
+    lands in the last step's time), tokens/s and the peak device memory."""
+    from repro_torch.launch import train
+
+    steps = int(args[args.index("--steps") + 1])
+    tokens = int(args[args.index("--batch") + 1]) * int(args[args.index("--seq") + 1])
+    argv = args + ["--workdir", workdir, "--profile-step", str(steps)]
+    if torch.device(device).type == "cpu":
+        argv += ["--device", "cpu"]
+    print("train: python -m repro_torch.launch.train " + " ".join(argv))
+    if train.main(argv) != 0:
+        raise AssertionError("the launcher failed")
+    with open(os.path.join(workdir, train.LOG_NAME)) as f:
+        log = [json.loads(line) for line in f]
+    if [r["step"] for r in log] != list(range(1, steps + 1)):
+        raise AssertionError(f"the launcher logged steps {[r['step'] for r in log]}")
+    losses = [r["loss"] for r in log]
+    norms = [r["grad_norm"] for r in log]
+    store = [r["store_bytes"] for r in log]
+    ms = [r["seconds"] * 1e3 for r in log[1:-1]]
+    med = float(np.median(ms))
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+            if torch.device(device).type == "cuda" else "not measured")
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    print(f"  gradient norms {[round(x, 4) for x in norms]}")
+    print(f"  store bytes after each step {store}: epoch 1 read {store[1]}, epochs 2-{steps // 2} read "
+          f"{store[-1] - store[1]}")
+    print(f"  ms per step, steps 2-{steps - 1}: median {med:.1f}, min {min(ms):.1f}, max {max(ms):.1f} "
+          f"(step 1 {log[0]['seconds'] * 1e3:.1f}, step {steps} profiled {log[-1]['seconds'] * 1e3:.1f}); "
+          f"{tokens / med * 1e3:.0f} tokens/s; peak device memory {peak}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"losses {losses}, gradient norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if len(set(store[1:])) != 1:
+        raise AssertionError(f"store bytes grew after step 2: {store}")
+    return {"median_ms": med, "min_ms": min(ms), "max_ms": max(ms), "tokens_per_s": tokens / med * 1e3}
+
+
+def _corpus_pipe(workdir: str, cfg, batch: int, seq: int, steps_per_epoch: int, start_step: int = 0):
+    """A token corpus of ``steps_per_epoch`` batches in a lake under
+    ``workdir`` (written once: the writer is idempotent) and a fresh
+    pipeline over it, with a cache of its own."""
+    from repro_torch.core.cache import DifferentialCache
+    from repro_torch.core.planner import ScanExecutor
+    from repro_torch.data import TokenBatchPipeline, write_token_corpus
+    from repro_torch.lake.catalog import Catalog
+    from repro_torch.lake.s3sim import ObjectStore
+
+    store = ObjectStore(os.path.join(workdir, "s3"))
+    catalog = Catalog(store, rows_per_fragment=1 << 16)
+    write_token_corpus(catalog, "data.corpus", batch * (seq + 1) * steps_per_epoch, cfg.vocab_size, seed=0)
+    scans = ScanExecutor(store, catalog, cache=DifferentialCache())
+    return TokenBatchPipeline(scans, "data.corpus", global_batch=batch, seq_len=seq,
+                              start_step=start_step, prefetch_depth=0)
+
+
+def _launcher_opt():
+    from repro_torch.train import OptimizerConfig
+
+    return OptimizerConfig(peak_lr=1e-3, warmup_steps=10, decay_steps=100)  # the launcher's
+
+
+def step_parity_phase(cfg, workdir: str, device="cuda", batch: int = 2, seq: int = 128) -> None:
+    """Part b: one f32 train step of ``cfg`` (two microbatches) from one
+    seeded state and batch, on the card and on the CPU, at step 10 so the
+    learning rate is the peak's 1e-3.  Bars: the loss and the gradient norm
+    at 1e-4 relative; every leaf of AdamW's first moment (0.1 of the
+    clipped gradient) within 1e-3 of the leaf's largest; every parameter
+    within the learning rate (a first AdamW step moves a weight by about
+    0.43 of it whatever the gradient's size, so a gradient near 0 whose
+    sign differs between the devices moves it by up to 0.86 of it)."""
+    import dataclasses
+
+    from repro_torch.models import get_model
+    from repro_torch.train import make_init_state, make_train_step
+    from repro_torch.train.state import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(cfg, dtype="float32", microbatches=2)
+    api, opt = get_model(cfg), _launcher_opt()
+    cpu = make_init_state(api, opt)(torch.Generator().manual_seed(0), "cpu")
+    cpu.step.fill_(10)
+    card = tree_map(lambda t: t.to(device, copy=True), cpu)
+    b = _corpus_pipe(workdir, cfg, batch, seq, 1).batch_at(0)
+    step = make_train_step(api, opt)
+    t = time.perf_counter()
+    card, m_card = step(card, b)
+    _sync(device)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu, m_cpu = step(cpu, b)
+    cpu_s = time.perf_counter() - t
+    rel = {k: abs(float(m_card[k]) - float(m_cpu[k])) / abs(float(m_cpu[k])) for k in ("loss", "grad_norm")}
+    m_err = max(float((a.cpu() - c).abs().max() / c.abs().max())
+                for a, c in zip(tree_leaves(card.opt["m"]), tree_leaves(cpu.opt["m"])))
+    p_err, p_off, n = 0.0, 0, 0
+    for a, c in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        d = (a.cpu() - c).abs()
+        p_err, p_off, n = max(p_err, float(d.max())), p_off + int((d > 1e-6).sum()), n + d.numel()
+    lr = float(m_cpu["lr"])
+    print(f"train step parity: {cfg.name} f32, {_depth(cfg)}, batch {batch} x {seq}, card {card_s:.3f} s, "
+          f"CPU {cpu_s:.3f} s; loss {float(m_cpu['loss']):.6f} (rel diff {rel['loss']:.3e}), gradient norm "
+          f"{float(m_cpu['grad_norm']):.6f} (rel diff {rel['grad_norm']:.3e}), first moment {m_err:.3e} of each "
+          f"leaf's largest, parameters max abs diff {p_err:.3e} (lr {lr:.1e}; {p_off} of {n} off by > 1e-6)")
+    if rel["loss"] > 1e-4 or rel["grad_norm"] > 1e-4 or m_err > 1e-3 or p_err > lr:
+        raise AssertionError("the card's train step left the CPU's bars")
+    del card, cpu
+
+
+def _same_tree(a, b) -> bool:
+    from repro_torch.train.state import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb)
+    )
+
+
+def checkpoint_phase(cfg, workdir: str, device="cuda", batch: int = 2, seq: int = 128) -> None:
+    """Part c: ``cfg`` (bf16, AdamW with its f32 master) trains 4 steps and
+    saves step 2 asynchronously; a fresh state (another seed) restores it,
+    a fresh pipeline resumes at step 2, and steps 3-4 run again.  The
+    restored tensors equal the saved state, the resumed batches the
+    uninterrupted run's, and the final losses and state the uninterrupted
+    run's, all bitwise."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import get_model
+    from repro_torch.train import make_init_state, make_train_step
+    from repro_torch.train.state import tree_map
+
+    api, opt = get_model(cfg), _launcher_opt()
+    init, step = make_init_state(api, opt), make_train_step(api, opt)
+    pipe = _corpus_pipe(workdir, cfg, batch, seq, 2)
+    mgr = CheckpointManager(os.path.join(workdir, "ckpt"), keep=2, async_save=True)
+    state = init(torch.Generator(device=device).manual_seed(0), device)
+    batches, losses = [], []
+    for s in range(4):
+        batches.append(pipe.batch_at(s))
+        state, m = step(state, batches[-1])
+        losses.append(float(m["loss"]))
+        if int(state.step) == 2:
+            t = time.perf_counter()
+            mgr.save(2, state, extra={"data_step": 2})
+            snap_s = time.perf_counter() - t
+            saved = tree_map(lambda x: x.detach().to("cpu", copy=True), state)
+    t = time.perf_counter()
+    mgr.wait()
+    write_s = time.perf_counter() - t
+    fresh = init(torch.Generator(device=device).manual_seed(1), device)
+    t = time.perf_counter()
+    step0, resumed = mgr.restore(target_struct=fresh)
+    _sync(device)
+    restore_s = time.perf_counter() - t
+    del fresh
+    if step0 != 2 or not _same_tree(resumed, saved):
+        raise AssertionError(f"the restored state (step {step0}) is not the saved one")
+    it = iter(_corpus_pipe(workdir, cfg, batch, seq, 2, start_step=step0))
+    again = []
+    for s in range(2, 4):
+        b = next(it)
+        if set(b) != set(batches[s]) or any(b[k].tobytes() != batches[s][k].tobytes() for k in b):
+            raise AssertionError(f"the resumed batch of step {s + 1} differs")
+        resumed, m = step(resumed, b)
+        again.append(float(m["loss"]))
+    if again != losses[2:] or not _same_tree(resumed, state):
+        raise AssertionError(f"resumed losses {again} != {losses[2:]}, or the final state differs")
+    nbytes = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(mgr.root) for f in fs)
+    print(f"checkpoint round trip: {cfg.name} {cfg.dtype}, {_depth(cfg)}, AdamW with an f32 master, "
+          f"batch {batch} x {seq}: losses {[round(x, 4) for x in losses]}; step 2 saved ({nbytes} bytes, "
+          f"host snapshot {snap_s:.3f} s, files written in the background {write_s:.3f} s more), restored "
+          f"in {restore_s:.3f} s into a fresh state; restored tensors, resumed batches, losses of steps 3-4 "
+          f"and the final state bitwise equal to the uninterrupted run")
+    del state, resumed, saved
+
+
+def compress_phase(cfg, workdir: str, device="cuda", batch: int = 2, seq: int = 128, steps: int = 4) -> None:
+    """Part d: the launcher's ``--compress-grads`` step (EF-int8) on
+    ``cfg`` for ``steps`` steps on one batch: every loss finite, the last
+    below the first; prints the wire ratio."""
+    from repro_torch.dist.compression import compressed_bytes, init_error_state
+    from repro_torch.launch.train import compressed_step
+    from repro_torch.models import get_model
+    from repro_torch.train import make_init_state
+    from repro_torch.train.state import tree_leaves
+
+    api, opt = get_model(cfg), _launcher_opt()
+    state = make_init_state(api, opt)(torch.Generator(device=device).manual_seed(0), device)
+    step = compressed_step(api, opt, init_error_state(tree_leaves(state.params)))
+    b = _corpus_pipe(workdir, cfg, batch, seq, 1).batch_at(0)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"EF-int8 losses {losses}")
+    wire = compressed_bytes(state.params)
+    print(f"EF-int8 gradients: {cfg.name} {cfg.dtype}, {_depth(cfg)}, {steps} steps on one batch of "
+          f"{batch} x {seq}: losses {[round(x, 4) for x in losses]}; wire {wire['int8_bytes']} of "
+          f"{wire['fp32_bytes']} f32 bytes, ratio {wire['ratio']:.4f} over {wire['tensors']} tensors")
+    del state
+
+
+def training_phase(workdir: str, *, args: List[str] = TRAIN_ARGS, cut=None, device="cuda",
+                   batch: int = 2, seq: int = 128) -> Dict[str, float]:
+    """The training path: part a through the launcher (``args``), parts b-d
+    on ``cut`` (by default granite-3-2b at full width, depth cut to
+    ``CUT_LAYERS``).  The model kernels' launch counts are set to 0 before
+    the phase and must still be 0 after it: training takes the plain
+    versions (the kernels have no backward)."""
+    cut = cut or model_config(GRANITE, dtype="bfloat16", kernels=False, layers=CUT_LAYERS)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    out = launch_phase(os.path.join(workdir, "launch"), args, device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    step_parity_phase(cut, os.path.join(workdir, "parity"), device, batch, seq)
+    checkpoint_phase(cut, os.path.join(workdir, "ckpt"), device, batch, seq)
+    compress_phase(cut, os.path.join(workdir, "ef"), device, batch, seq)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"training launched model kernels: {launches}")
+    print(f"training phase: {time.perf_counter() - t0:.1f} s, kernel launches {launches}")
+    return out
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -1730,6 +1994,8 @@ def main(argv=None) -> int:
             lengths=[5000, 6500], new_tokens=16, sampled=False, profile_len=5000,
         ),
     }
+    with tempfile.TemporaryDirectory() as tmp:
+        training_phase(tmp)
     attention["launches"] = sum(r["flash_attention"] for r in runs.values())
     attention["launches_by_run"] = {name: r["flash_attention"] for name, r in runs.items()}
     scan["launches"] = runs[ZAMBA2]["mamba2_ssd"]

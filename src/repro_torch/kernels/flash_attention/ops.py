@@ -1,12 +1,15 @@
 """Public wrapper: model-layout ``(B, S, H, hd)`` GQA flash attention.
 
 A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
-launches the kernel or raises.  The kernel reads the model layout directly
-and masks the ragged tail itself, so the reference wrapper's head moves and
-padding have no counterpart.  The kernel's tiles are fixed by the head
-group and the dtype (``kernel.tile_rows``, ``kernel.query_block``) and a
-64-key tile; ``q_block`` and ``k_block`` are accepted for signature parity
-with the reference and are only checked.
+launches the kernel or raises.  The kernel has no backward, so under
+autograd (grad mode on and an input that requires grad) the wrapper raises
+on every device, as the reference cannot differentiate its Pallas kernel.
+The kernel reads the model layout directly and masks the ragged tail
+itself, so the reference wrapper's head moves and padding have no
+counterpart.  The kernel's tiles are fixed by the head group and the dtype
+(``kernel.tile_rows``, ``kernel.query_block``) and a 64-key tile;
+``q_block`` and ``k_block`` are accepted for signature parity with the
+reference and are only checked.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ def flash_attention(
         raise ValueError(f"{H} query heads do not divide into {KV} KV heads")
     if q_block <= 0 or k_block <= 0:
         raise ValueError(f"block sizes must be positive, got {q_block}, {k_block}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward kernel; the reference cannot differentiate its "
+            "Pallas kernel either: train with use_pallas_kernels=False"
+        )
     scale = hd**-0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale=scale, causal=causal, window=window)

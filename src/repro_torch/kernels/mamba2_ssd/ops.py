@@ -2,12 +2,15 @@
 ``repro_torch.models.ssm.ssd_chunked`` (drop-in fast path).
 
 A CPU tensor takes the plain version (``ref.ssd_ref_chunked``); a CUDA
-tensor launches the kernel or raises.  The kernel masks a ragged last chunk
-itself (the final state equals the unpadded one), so the reference
-wrapper's ``dt = 0`` padding has no counterpart.  The kernel fixes its own
-head grouping (one head a block for the chunk states, two for the chunk
-outputs on the tensor cores); ``head_block`` is accepted for signature
-parity with the reference and is only checked.
+tensor launches the kernel or raises.  The kernel has no backward, so under
+autograd (grad mode on and an input that requires grad) the wrapper raises
+on every device, as the reference cannot differentiate its Pallas kernel.
+The kernel masks a ragged last chunk itself (the final state equals the
+unpadded one), so the reference wrapper's ``dt = 0`` padding has no
+counterpart.  The kernel fixes its own head grouping (one head a block for
+the chunk states, two for the chunk outputs on the tensor cores);
+``head_block`` is accepted for signature parity with the reference and is
+only checked.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ def ssd(
     B, S, H, P = xh.shape
     if chunk <= 0 or head_block <= 0:
         raise ValueError(f"chunk and head_block must be positive, got {chunk}, {head_block}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xh, dt, A, Bm, Cm)):
+        raise RuntimeError(
+            "mamba2_ssd has no backward kernel; the reference cannot differentiate its "
+            "Pallas kernel either: train with use_pallas_kernels=False"
+        )
     Q = min(chunk, S)
     if xh.device.type == "cpu":
         return ssd_ref_chunked(xh, dt, A, Bm, Cm, chunk=Q)

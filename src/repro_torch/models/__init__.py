@@ -5,7 +5,7 @@ the transformer families (dense, MoE, audio, VLM), the attention-free
 
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeSpec
 from repro_torch.models.registry import ARCH_IDS, ModelAPI, get_config, get_model, list_archs
-from repro_torch.models.weights import params_from_reference
+from repro_torch.models.weights import params_from_reference, state_from_reference
 
 __all__ = [
     "ArchConfig",
@@ -17,4 +17,5 @@ __all__ = [
     "get_model",
     "list_archs",
     "params_from_reference",
+    "state_from_reference",
 ]

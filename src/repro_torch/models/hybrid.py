@@ -8,7 +8,9 @@ layers,
     [mamba ×p] -> shared-attn -> [mamba ×p] -> shared-attn -> …
 
 The decode cache carries SSM states for every mamba layer plus one KV cache
-per shared-block application.
+per shared-block application.  Under autograd the Mamba2 layers are
+recomputed in the backward pass whenever ``cfg.remat`` is not ``"none"``
+and the shared block is not, as in the reference.
 """
 
 from __future__ import annotations
@@ -89,8 +91,10 @@ def forward(
     B, S = tokens.shape
     x = _mamba._embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    layers = _mamba.unstack(params["layers"])
+    mode = "none" if cfg.remat == "none" else "full"
     for start, stop in _segments(cfg):
-        x, _, _ = _mamba.run_layers(cfg, x, params["layers"], start, stop)
+        x, _, _ = _mamba.run_layers(cfg, x, layers[start:stop], mode)
         x, _, _ = _shared_block_train(cfg, params["shared_attn"], x, positions)
     return _mamba._logits(cfg, params, x)
 
@@ -121,9 +125,10 @@ def prefill(
     x = _mamba._embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
+    layers = _mamba.unstack(params["layers"])
     ssm_parts, conv_parts, k_parts, v_parts = [], [], [], []
     for start, stop in _segments(cfg):
-        x, ssm, conv = _mamba.run_layers(cfg, x, params["layers"], start, stop)
+        x, ssm, conv = _mamba.run_layers(cfg, x, layers[start:stop])
         ssm_parts += ssm
         conv_parts += conv
         x, k, v = _shared_block_train(cfg, params["shared_attn"], x, positions)
@@ -165,9 +170,10 @@ def decode_step(
     kv_pos[torch.arange(B, device=x.device), slot] = pos
     valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
     sp = params["shared_attn"]
+    layers = _mamba.unstack(params["layers"])
 
     for app, (start, stop) in enumerate(_segments(cfg)):
-        x = _mamba.decode_layers(cfg, x, params["layers"], cache, start, stop)
+        x = _mamba.decode_layers(cfg, x, layers[start:stop], cache, start)
         # shared attention block; writes this step's K/V into the cache
         h = rms_norm(x, sp["ln1"], cfg.norm_eps)
         a, _, _ = attention_decode(

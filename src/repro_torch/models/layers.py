@@ -14,14 +14,18 @@ Attention on the full sequence takes the flash-attention kernel when
 kernel on a CUDA tensor, its plain version on a CPU tensor) and otherwise
 the reference's XLA formulations: blocked-local for a sliding window shorter
 than the sequence, blocked online-softmax above 8192 positions, and
-materialised scores below.  The loss belongs to the training slice and
-raises ``NotImplementedError``.
+materialised scores below.  Every function is differentiable by autograd
+except the kernel paths, which have no backward (the reference defines none
+for its Pallas kernels either).  ``remat`` maps ``cfg.remat`` onto
+``torch.utils.checkpoint``, and ``cross_entropy`` is the reference's masked
+token-mean loss.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +41,7 @@ __all__ = [
     "mlp_apply",
     "moe_apply",
     "cross_entropy",
+    "remat",
 ]
 
 _NEG_INF = -1e30
@@ -349,5 +354,57 @@ def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> t
 
 
 # ------------------------------------------------------------------- loss
-def cross_entropy(logits, labels, mask, softcap: float = 0.0):
-    raise NotImplementedError("the training loss is not ported yet: ROADMAP A11, training slice")
+def cross_entropy(
+    logits: torch.Tensor,  # (B, S, V) any float dtype
+    labels: torch.Tensor,  # (B, S) int
+    mask: torch.Tensor,  # (B, S) float or bool
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked token-mean CE in fp32.  Returns (loss, token_count)."""
+    lg = logits.float()
+    if softcap > 0:
+        lg = torch.tanh(lg / softcap) * softcap
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    mask = mask.float()
+    nll = (lse - gold) * mask
+    count = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll) / count, count
+
+
+# ------------------------------------------------------------------ remat
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dimensions (the projections, which
+    ``einsum`` lowers to ``mm`` or a ``bmm`` of batch 1) and recompute the
+    rest, attention scores and expert products included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op is aten.mm.default or (op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(mode: str, fn: Callable) -> Callable:
+    """``fn`` under the reference's rematerialisation policy ``mode``:
+    ``"none"`` keeps every activation, ``"full"`` keeps only ``fn``'s inputs
+    and recomputes the rest in the backward pass, ``"dots"`` keeps the
+    outputs of the products without batch dimensions as well.  With grad
+    mode off (serving) ``fn`` runs as it is."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {mode!r}")
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run

@@ -1,20 +1,22 @@
 """Mamba2 (SSD) decoder stack — attention-free family, on torch tensors.
 
 The port of ``repro.models.mamba``: the layer-stacked parameters are looped
-over in Python in place of ``lax.scan``, and there is no rematerialisation
-(inference only).  The decode "cache" is the constant-size SSM state and
-conv tail per layer.
+over in Python in place of ``lax.scan``, each layer under the config's
+rematerialisation policy (``layers.remat``), so ``forward`` trains under
+autograd as the reference's does under ``jax.grad``.  The decode "cache" is
+the constant-size SSM state and conv tail per layer.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import remat, rms_norm
 from repro_torch.models.ssm import mamba2_decode, mamba2_forward, mamba2_layer_param_shapes
 
 __all__ = [
@@ -70,9 +72,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device: Device = None) ->
     }
 
 
-def layer(layers: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s parameters out of the layer-stacked dict (views)."""
-    return {k: v[i] for k, v in layers.items()}
+def unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """The per-layer trees of a layer-stacked ``(L, …)`` tree: one
+    ``torch.unbind`` per leaf, so the views share the stack's storage and
+    the backward pass stacks each leaf's gradient once (indexing the stack
+    layer by layer would write a zero tensor of the whole stack per layer)."""
+    per_leaf = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v) for k, v in tree.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -81,30 +88,39 @@ def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _embed(cfg: ArchConfig, params, tokens, prefix_embeds) -> torch.Tensor:
-    x = params["embed"][tokens]  # a fresh tensor (advanced indexing copies)
+    # a fresh tensor; the embedding's backward sums each row's gradients in
+    # a fixed order (indexing's backward accumulates them in parallel, so
+    # two runs of one step could differ in the last bit)
+    x = F.embedding(tokens, params["embed"])
     if prefix_embeds is not None and cfg.prefix_len:
         x[:, : prefix_embeds.shape[1]] = prefix_embeds.to(x.dtype)
     return x
 
 
-def run_layers(cfg: ArchConfig, x: torch.Tensor, layers, start: int, stop: int):
-    """Mamba2 layers [start, stop) on the full sequence, pre-norm residual;
-    returns (x, [final ssm state], [conv tail]) per layer."""
+def _block(cfg: ArchConfig, x: torch.Tensor, lp):
+    """One pre-norm residual Mamba2 layer: (x, final ssm state, conv tail)."""
+    out, ssm_state, conv_tail = mamba2_forward(cfg, rms_norm(x, lp["ln"], cfg.norm_eps), lp)
+    return x + out, ssm_state, conv_tail
+
+
+def run_layers(cfg: ArchConfig, x: torch.Tensor, layers: Sequence[Dict[str, Any]], mode: str = "none"):
+    """Mamba2 layers (per-layer trees, from ``unstack``) on the full
+    sequence, each under the remat policy ``mode``; returns (x, [final ssm
+    state], [conv tail]) per layer."""
+    block = remat(mode, lambda x, lp: _block(cfg, x, lp))
     ssm, conv = [], []
-    for i in range(start, stop):
-        lp = layer(layers, i)
-        out, ssm_state, conv_tail = mamba2_forward(cfg, rms_norm(x, lp["ln"], cfg.norm_eps), lp)
-        x = x + out
+    for lp in layers:
+        x, ssm_state, conv_tail = block(x, lp)
         ssm.append(ssm_state)
         conv.append(conv_tail)
     return x, ssm, conv
 
 
-def decode_layers(cfg: ArchConfig, x: torch.Tensor, layers, cache, start: int, stop: int):
-    """Mamba2 layers [start, stop) for one token per sequence; their states
-    in ``cache["ssm"]`` and ``cache["conv"]`` are updated in place."""
-    for i in range(start, stop):
-        lp = layer(layers, i)
+def decode_layers(cfg: ArchConfig, x: torch.Tensor, layers: Sequence[Dict[str, Any]], cache, start: int):
+    """Mamba2 layers ``start, start + 1, …`` (per-layer trees) for one token
+    per sequence; their states in ``cache["ssm"]`` and ``cache["conv"]`` are
+    updated in place."""
+    for i, lp in enumerate(layers, start):
         h = rms_norm(x, lp["ln"], cfg.norm_eps)
         out, ssm_state, conv_state = mamba2_decode(cfg, h, lp, cache["ssm"][i], cache["conv"][i])
         cache["ssm"][i].copy_(ssm_state)
@@ -120,7 +136,7 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     x = _embed(cfg, params, tokens, prefix_embeds)
-    x, _, _ = run_layers(cfg, x, params["layers"], 0, cfg.num_layers)
+    x, _, _ = run_layers(cfg, x, unstack(params["layers"]), cfg.remat)
     return _logits(cfg, params, x)
 
 
@@ -146,7 +162,7 @@ def prefill(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     B, S = tokens.shape
     x = _embed(cfg, params, tokens, prefix_embeds)
-    x, ssm_states, conv_tails = run_layers(cfg, x, params["layers"], 0, cfg.num_layers)
+    x, ssm_states, conv_tails = run_layers(cfg, x, unstack(params["layers"]))
     logits = _logits(cfg, params, x[:, -1:, :])
     cache = {
         "ssm": torch.stack(ssm_states),
@@ -166,6 +182,6 @@ def decode_step(
     updated in place (the reference donates them to jit) and returned in a
     new dict with the advanced positions."""
     x = params["embed"][tokens]  # (B,1,D)
-    x = decode_layers(cfg, x, params["layers"], cache, 0, cfg.num_layers)
+    x = decode_layers(cfg, x, unstack(params["layers"]), cache, 0)
     logits = _logits(cfg, params, x)
     return logits, {"ssm": cache["ssm"], "conv": cache["conv"], "pos": cache["pos"] + 1}

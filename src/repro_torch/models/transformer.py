@@ -2,8 +2,9 @@
 torch tensors.
 
 The port of ``repro.models.transformer``: the layer-stacked parameters are
-looped over in Python in place of ``lax.scan``, and there is no
-rematerialisation (inference only).  Modality frontends (musicgen frames,
+looped over in Python in place of ``lax.scan``, each layer under the
+config's rematerialisation policy (``layers.remat``), so ``forward`` trains
+under autograd as the reference's does under ``jax.grad``.  Modality frontends (musicgen frames,
 InternViT patches) are stubs, as in the reference: precomputed prefix
 embeddings overwrite the first ``prefix_len`` token embeddings (early
 fusion).  Sliding-window archs keep a ring KV cache of ``window`` slots.
@@ -23,9 +24,10 @@ from repro_torch.models.layers import (
     attention_train,
     mlp_apply,
     moe_apply,
+    remat,
     rms_norm,
 )
-from repro_torch.models.mamba import Device, _dtype, _embed, normal
+from repro_torch.models.mamba import Device, _dtype, _embed, normal, unstack
 
 __all__ = [
     "init_params",
@@ -69,8 +71,11 @@ def _layer_shapes(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def _fan_in(name: str, s: tuple) -> int:
+    """The size of the dimension a weight contracts over."""
     if name == "wo":  # (H, hd, D): contraction over H·hd
         return s[0] * s[1]
+    if name in ("wq", "wk", "wv"):  # (D, heads, hd): contraction over D
+        return s[0]
     if len(s) >= 2:  # (…, in, out): contraction over the next-to-last dim
         return s[-2]
     return 1
@@ -103,11 +108,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device: Device = None) ->
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(gen, (D, V), D, dt, device)
     return params
-
-
-def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i``'s parameters out of the layer-stacked tree (views)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 # ------------------------------------------------------------------ forward
@@ -143,8 +143,9 @@ def forward(
     B, S = tokens.shape
     x = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, _, _ = _block(cfg, _layer(params["layers"], i), x, positions)
+    block = remat(cfg.remat, lambda x, lp: _block(cfg, lp, x, positions)[0])
+    for lp in unstack(params["layers"]):
+        x = block(x, lp)
     return _logits(cfg, params, x)
 
 
@@ -191,8 +192,8 @@ def prefill(
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, k, v = _block(cfg, _layer(params["layers"], i), x, positions)
+    for lp in unstack(params["layers"]):
+        x, k, v = _block(cfg, lp, x, positions)
         if ring:  # keep the last T positions, rotated so slot == pos % T
             k = torch.roll(k[:, S - T :], shifts=shift, dims=1)
             v = torch.roll(v[:, S - T :], shifts=shift, dims=1)
@@ -242,8 +243,7 @@ def decode_step(
     if window > 0:
         valid &= kv_pos > (pos - window)[:, None]
 
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(unstack(params["layers"])):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a, _, _ = attention_decode(
             cfg, h, lp["wq"], lp["wk"], lp["wv"], lp["wo"],

@@ -5,7 +5,9 @@ The reference's parameter tree, given as numpy arrays
 layouts (``(D, H, hd)`` projections, layer-stacked ``(L, …)`` tensors), so
 the move is one of dtype and device only.  numpy has no bfloat16 that torch
 takes: a bf16 leaf (``ml_dtypes.bfloat16``) goes through f32, which holds it
-exactly, and is then cast back to ``torch.bfloat16``.
+exactly, and is then cast back to ``torch.bfloat16``.  A reference
+``TrainState`` comes over the same way, optimizer state and step included,
+so both packages can step from one state.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ArchConfig
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "state_from_reference"]
 
 
 def _keys(cfg: ArchConfig) -> set:
@@ -57,3 +59,24 @@ def params_from_reference(
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: parameter keys {sorted(tree)} != {sorted(want)}")
     return _convert(tree, device)
+
+
+def state_from_reference(cfg: ArchConfig, opt_cfg, tree: Any, device: Union[None, str, torch.device] = None):
+    """The port's ``TrainState`` from the reference's, given with numpy
+    leaves (``jax.tree.map(np.asarray, state)``, or a mapping with the same
+    fields): the parameters, the optimizer state of ``opt_cfg.kind`` (AdamW's
+    ``m``, ``v`` and ``master`` when the parameters need one, Adafactor's
+    factored ``f``) and the step.  ``device`` ``None`` means the CUDA card."""
+    from repro_torch.train.state import TrainState
+
+    device = resolve_device(device)
+    field = tree.__getitem__ if isinstance(tree, Mapping) else lambda k: getattr(tree, k)
+    opt = field("opt")
+    want = {"f"} if opt_cfg.kind == "adafactor" else {"m", "v"} | ({"master"} & set(opt))
+    if set(opt) != want:
+        raise ValueError(f"{opt_cfg.kind}: optimizer state keys {sorted(opt)} != {sorted(want)}")
+    return TrainState(
+        params=params_from_reference(cfg, field("params"), device),
+        opt=_convert(opt, device),
+        step=torch.tensor(np.asarray(field("step")), dtype=torch.int32, device=device),
+    )

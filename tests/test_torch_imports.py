@@ -33,6 +33,7 @@ COPIES = [
     "analysis/errors.py",
     "analysis/module_scan.py",
     "analysis/walker.py",
+    "checkpoint/__init__.py",
     "configs/__init__.py",
     "configs/granite_3_2b.py",
     "configs/granite_3_8b.py",
@@ -51,6 +52,9 @@ COPIES = [
     "core/intervals.py",
     "core/scan.py",
     "core/spill.py",
+    "data/__init__.py",
+    "data/corpus.py",
+    "data/packing.py",
     "dist/__init__.py",
     "dist/fault.py",
     "lake/__init__.py",

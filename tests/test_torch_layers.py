@@ -39,10 +39,12 @@ def arch(request):
 
 
 def test_unported_layers_raise_naming_the_roadmap():
-    """Only the loss is left to the training slice.  The blocked attentions
-    raise where the reference's reshapes fail, instead of padding."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PL.cross_entropy(None, None, None)
+    """No layer is left unported: the loss, the last one, now computes (held
+    against the reference in ``test_torch_train_dense.py``).  The blocked
+    attentions raise where the reference's reshapes fail, instead of
+    padding."""
+    loss, count = PL.cross_entropy(torch.zeros((1, 2, 4)), torch.zeros((1, 2), dtype=torch.int64), torch.ones((1, 2)))
+    assert float(count) == 2.0 and abs(float(loss) - np.log(4.0)) < 1e-6
     q = torch.zeros((1, 96, 2, 16))
     with pytest.raises(ValueError, match="window"):
         PL._blocked_local_attention(q, q, q, 64, 1.0)

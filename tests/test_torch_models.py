@@ -190,7 +190,8 @@ def test_ring_cache_decode_equals_forward():
 @pytest.mark.parametrize("arch_id", ARCHS)
 def test_init_params_has_the_reference_tree(arch_id):
     """Keys, shapes and dtypes of a bf16 model equal the reference's; the
-    deterministic leaves equal it exactly."""
+    deterministic leaves equal it exactly; the random ones have the scale
+    of their fan-in."""
     cfg = dataclasses.replace(get_config(arch_id).reduced(), dtype="bfloat16")
     rcfg = dataclasses.replace(ref_get_config(arch_id).reduced(), dtype="bfloat16")
     ref = jax.tree.map(np.asarray, ref_get_model(rcfg).init_params(jax.random.PRNGKey(0)))
@@ -203,13 +204,16 @@ def test_init_params_has_the_reference_tree(arch_id):
         name = jax.tree_util.keystr(path)
         if any(k in name for k in ("A_log", "dt_bias", "conv_b", "'ln", "norm", "D_skip")):
             np.testing.assert_allclose(_np(g), r.astype(np.float32), rtol=1e-6, err_msg=name)
-    # N(0, 1/fan_in): mamba's (L, in, out) projections, the transformer's
-    # (L, D, H, hd) query projection (fan-in H, the reference's rule) and
-    # its (L, H, hd, D) output projection (fan-in H·hd)
+    # N(0, 1/fan_in), the fan-in being the dimension a weight contracts
+    # over: mamba's (L, in, out) projections, the transformer's (L, D, H, hd)
+    # query and (L, D, KV, hd) key projections (fan-in D; the reference
+    # draws them at the fan-in of H and KV, against its own rule, which
+    # leaves granite-3-2b untrainable at its published depth: ROADMAP §C)
+    # and its (L, H, hd, D) output projection (fan-in H·hd)
     if cfg.family in ("ssm", "hybrid"):
         fans = {"in_proj": cfg.d_model, "out_proj": cfg.d_inner}
     else:
-        fans = {"wq": cfg.num_heads, "wo": cfg.num_heads * cfg.resolved_head_dim}
+        fans = {"wq": cfg.d_model, "wk": cfg.d_model, "wo": cfg.num_heads * cfg.resolved_head_dim}
     for name, fan_in in fans.items():
         w = _np(got["layers"][name])
         assert abs(w.std() * fan_in**0.5 - 1) < 0.05, name

@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s model phases, rehearsed on the CPU at reduced size:
 the f32 consistency phase (kernels on against off, with the MoE router
 trace) and the serve phase (engine traffic, launch counts, the ring cache),
-for the dense and the MoE sliding-window transformer.  On the CPU the
+for the dense and the MoE sliding-window transformer, and the training
+phase (the launcher, step parity, the checkpoint round trip, EF-int8).  On the CPU the
 wrappers take their plain versions, so no kernel launches and none is
 expected; on the card the same code holds the counts."""
 
@@ -77,3 +78,17 @@ def test_one_ulp_moves_every_value_by_one_float_step():
     moved = chip_smoke._one_ulp(t)
     step = torch.nextafter(t, torch.full_like(t, float("inf"))) - t
     assert torch.all((moved - t).abs() <= step * 1.0000001 + 1e-45) and torch.all(moved != t)
+
+
+def test_training_phase_runs_on_the_cpu(tmp_path, capsys):
+    """Reduced granite through the launcher, and the 2-layer cut in bf16
+    with granite's remat and microbatches; the CPU stands in for the card
+    in the step parity."""
+    cut = _reduced("granite-3-2b", dtype="bfloat16", num_layers=2, remat="full", microbatches=2)
+    args = ["--arch", "granite-3-2b", "--reduced", "--steps", "8", "--batch", "2", "--seq", "32"]
+    out = chip_smoke.training_phase(str(tmp_path), args=args, cut=cut, device="cpu", batch=2, seq=32)
+    assert out["median_ms"] > 0
+    text = capsys.readouterr().out
+    assert "epochs 2-4 read 0" in text and "profile step 8" in text
+    assert "bitwise equal to the uninterrupted run" in text and "ratio 0.2" in text
+    assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text

@@ -27,6 +27,8 @@ from repro_torch.pipeline.executor import Workspace as PortWorkspace
 from repro_torch.service import PipelineService as PortService
 
 __all__ = [
+    "ONE_STEP_OPT",
+    "assert_one_step_matches",
     "LEDGER_KEYS",
     "SERVICE_KEYS",
     "TwinLakes",
@@ -34,9 +36,12 @@ __all__ = [
     "assert_same_bits",
     "assert_tables_bitwise",
     "ledger",
+    "fan_in_d_attention",
     "reduced_pair",
     "to_numpy",
     "to_torch",
+    "token_batch",
+    "train_states",
 ]
 
 # the per-run device ledger the port must reproduce exactly
@@ -193,3 +198,111 @@ def reduced_pair(arch_id: str, seed: int = 0):
     rparams = ref_get_model(rcfg).init_params(jax.random.PRNGKey(seed))
     cfg = get_config(arch_id).reduced()
     return rcfg, rparams, cfg, params_from_reference(cfg, jax.tree.map(np.asarray, rparams), "cpu")
+
+
+# ---------------------------------------------------------------- training
+def fan_in_d_attention(cfg, tree):
+    """The reference's numpy parameter tree with its query, key and value
+    projections rescaled to a fan-in of ``d_model``.  The reference draws a
+    ``(D, KV, hd)`` projection at the fan-in of KV, which is 1 in most
+    reduced configs: keys reach ±40 and the softmax is so sharp that the
+    reference's own jit and eager gradients differ by up to 6e-3 of a
+    leaf's largest (mixtral-8x22b); at a fan-in of D they differ by 2e-6.
+    Leaves the tree unchanged for an arch without them."""
+    layers = tree["layers"]
+    if "wq" not in layers:
+        return tree
+    D = cfg.d_model
+    out = dict(tree, layers=dict(layers))
+    for name, fan in (("wq", cfg.num_heads), ("wk", cfg.num_kv_heads), ("wv", cfg.num_kv_heads)):
+        out["layers"][name] = (layers[name] * np.float32((fan / D) ** 0.5)).astype(layers[name].dtype)
+    return out
+
+
+def token_batch(cfg, batch: int, seq: int, seed: int) -> Dict[str, np.ndarray]:
+    """A seeded training batch: tokens, shifted labels, a loss mask with
+    about a tenth of the targets masked, and prefix embeddings for an arch
+    with a frontend."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    out = {
+        "tokens": toks[:, :-1],
+        "labels": toks[:, 1:],
+        "loss_mask": (rng.random((batch, seq)) > 0.1).astype(np.float32),
+    }
+    if cfg.prefix_len:
+        out["prefix_embeds"] = rng.standard_normal((batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def train_states(arch_id: str, opt_kw: dict, *, microbatches: int = 1, seed: int = 0, conditioned: bool = True):
+    """One reduced arch's training state in both packages, the port's
+    carried over from the reference's by ``state_from_reference``;
+    ``conditioned`` rescales the attention projections first
+    (``fan_in_d_attention``).  Returns (ref step fn (jitted), ref state,
+    port step fn, port state)."""
+    import dataclasses
+
+    import jax
+
+    from repro.models.registry import get_config as ref_get_config
+    from repro.models.registry import get_model as ref_get_model
+    from repro.train.loop import make_train_step as ref_step
+    from repro.train.optimizer import OptimizerConfig as RefOpt, make_optimizer as ref_optimizer
+    from repro.train.state import TrainState as RefState
+    from repro_torch.models import get_config, get_model, state_from_reference
+    from repro_torch.train import OptimizerConfig, make_train_step
+
+    rcfg = dataclasses.replace(ref_get_config(arch_id).reduced(), microbatches=microbatches)
+    cfg = dataclasses.replace(get_config(arch_id).reduced(), microbatches=microbatches)
+    rapi, api = ref_get_model(rcfg), get_model(cfg)
+    params = jax.tree.map(np.asarray, rapi.init_params(jax.random.PRNGKey(seed)))
+    if conditioned:
+        params = fan_in_d_attention(cfg, params)
+    params = jax.tree.map(jax.numpy.asarray, params)
+    init_opt, _ = ref_optimizer(RefOpt(**opt_kw))
+    rstate = RefState(params=params, opt=init_opt(params), step=jax.numpy.zeros((), jax.numpy.int32))
+    state = state_from_reference(cfg, OptimizerConfig(**opt_kw), jax.tree.map(np.asarray, rstate), "cpu")
+    return (
+        jax.jit(ref_step(rapi, RefOpt(**opt_kw))), rstate,
+        make_train_step(api, OptimizerConfig(**opt_kw)), state,
+    )
+
+
+ONE_STEP_OPT = dict(peak_lr=1e-3, grad_clip_norm=float("inf"))
+
+
+def assert_one_step_matches(arch_id: str, *, microbatches: int = 1, conditioned: bool = True) -> None:
+    """One train step of a reduced arch in both packages from one state and
+    batch, held at 1e-4 (``ONE_FOR_ONE``, ``tests/test_torch_models.py``):
+    the loss, the token count and the gradient norm, and every gradient
+    through AdamW's first moment.  Clipping is off and the schedule's
+    learning rate is 0 at step 0, so ``m = (1 - b1)·g`` exactly on both
+    sides and the parameters do not move; ``m`` is held at the bar scaled
+    by ``1 - b1``.  Without ``conditioned`` (the reference's own attention
+    init) only the loss is held, at 1e-5 (``fan_in_d_attention``)."""
+    import jax
+
+    from repro_torch.models import get_config
+    from repro_torch.train.state import tree_leaves
+
+    rstep, rstate, step, state = train_states(arch_id, ONE_STEP_OPT, microbatches=microbatches,
+                                              conditioned=conditioned)
+    cfg = get_config(arch_id).reduced()
+    batch = token_batch(cfg, 4, 2 * cfg.sliding_window if cfg.sliding_window else 40, seed=3)
+    rstate, rm = rstep(rstate, jax.tree.map(jax.numpy.asarray, batch))
+    state, m = step(state, batch)
+    if not conditioned:
+        np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]), rtol=1e-5)
+        return
+    for k in ("loss", "tokens", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(m[k]), float(rm[k]), rtol=1e-4, atol=1e-4, err_msg=k)
+    assert int(state.step) == int(rstate.step) == 1
+    paths = jax.tree_util.tree_flatten_with_path(rstate.opt["m"])[0]
+    got = tree_leaves(state.opt["m"])
+    assert len(got) == len(paths)
+    for (path, want), g in zip(paths, got):
+        np.testing.assert_allclose(to_numpy(g), np.asarray(want), rtol=1e-4, atol=1e-5,
+                                   err_msg=jax.tree_util.keystr(path))
+    for want, g in zip(jax.tree_util.tree_leaves(rstate.params), tree_leaves(state.params)):
+        np.testing.assert_array_equal(to_numpy(g), np.asarray(want))
