@@ -62,11 +62,36 @@
    granite at full width with 2 of 40 layers, card against CPU; (c) a
    checkpoint round trip at that size in bf16, bitwise; (d) 4 steps of
    EF-int8 compressed gradients at that size.
+8. Distributed path, with the model kernels' launch counts set to 0 before
+   it and still 0 after it: (a) ``python -m repro_torch.launch.train
+   --pipeline 4 --steps 30`` through ``main``, four ranks sharing the card
+   over gloo (NCCL refuses two ranks on one card; gloo carries host
+   tensors, so every hop goes through a pinned host buffer): finite losses
+   that fall, checkpoints of the stage-stacked state in the reference's
+   format, one restored; (b) the reference dry-run's pipeline cell (S 4,
+   L 8, D 128, MB 4, SEQ 64) at M 4 and 12, both schedules, on four ranks
+   against the card's own sequential stack at the reference's bars (loss
+   rtol 1e-6, gradients rtol 1e-5 / atol 1e-7), each rank's peak memory
+   under 1F1B below GPipe's at M 12 (read after a warm-up call), ms per
+   call (median of 5 after those, min, max); (c) granite-3-2b at full width with 2 of 40 layers
+   (bf16): one train step under the rules of a (data=1, model=1) mesh, the
+   state and batch as DTensors, against the plain step (bitwise, or the
+   largest difference printed) with 0 collectives (``CommDebugMode``), and
+   a checkpoint written unsharded and restored with ``shardings=`` onto
+   the mesh, bitwise; then a (data=1, model=2) mesh of two ranks sharing
+   the card over gloo is tried with the first collective its step needs,
+   and whether gloo carried it is printed.
+
+``four_card_phase`` (not run by ``main``, which needs one card) drives
+parts a and b with a card a rank (NCCL, hops as device tensors); run it
+on four cards with
+``python3 -c "import tempfile, chip_smoke; chip_smoke.four_card_phase(tempfile.mkdtemp())"``.
 
 Prints the card, the build time, the kernel checks and timings, each edit's
 wall time, each tenant's ledger, the service's profile and spans, the serve
 runs' timings and profiles, the training numbers (ms per step, tokens/s,
-peak memory, a profiled step), a ``{"kernels": [...]}`` line and, last,
+peak memory, a profiled step), the distributed numbers (each beside the
+card's name and power limit), a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises
 (non-zero exit).  Exits non-zero without a CUDA card.
 
@@ -1922,6 +1947,313 @@ def training_phase(workdir: str, *, args: List[str] = TRAIN_ARGS, cut=None, devi
     return out
 
 
+# ------------------------------------------------------------- distributed
+PIPELINE_ARGS = ["--pipeline", "4", "--steps", "30"]
+# the reference dry-run's pipeline cell (src/repro/launch/dryrun.py:331): S 4, L 2S, D 128, MB 4, SEQ 64
+PIPELINE_CELL = {"S": 4, "D": 128, "MB": 4, "SEQ": 64}
+PIPELINE_MICRO = (4, 12)
+SCHEDULE_REPS = 5
+
+
+def _card(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, for the
+    result lines; on the CPU, "CPU"."""
+    if torch.device(device).type != "cuda":
+        return "CPU"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def pipeline_launch_phase(workdir: str, args: List[str], device="cuda") -> Dict[str, float]:
+    """Part a: ``python -m repro_torch.launch.train --pipeline 4`` as a user
+    runs it, its four ranks sharing the card (gloo, hops through pinned host
+    buffers).  Every loss finite, the last below the first; the
+    checkpoints hold the stage-stacked ``(S, L/S, 64, 64)`` state in the
+    reference's on-disk format and one restores."""
+    from repro_torch.checkpoint import restore_state
+    from repro_torch.launch import train
+
+    argv = args + ["--workdir", workdir] + (["--device", "cpu"] if torch.device(device).type == "cpu" else [])
+    print("pipeline: python -m repro_torch.launch.train " + " ".join(argv), flush=True)
+    t = time.perf_counter()
+    if train.main(argv) != 0:
+        raise AssertionError("the pipeline launcher failed")
+    wall = time.perf_counter() - t
+    with open(os.path.join(workdir, train.LOG_NAME)) as f:
+        log = [json.loads(line) for line in f]
+    steps = int(args[args.index("--steps") + 1])
+    S = int(args[args.index("--pipeline") + 1])
+    losses = [r["loss"] for r in log]
+    if [r["step"] for r in log] != list(range(1, steps + 1)) or not all(np.isfinite(losses)):
+        raise AssertionError(f"the pipeline launcher logged {log}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the pipeline loss did not fall: {losses}")
+    step, tree = restore_state(os.path.join(workdir, "ckpt"))
+    if tree["0"]["W"].shape != (S, 2, 64, 64) or int(tree["2"]) != step:
+        raise AssertionError(f"checkpoint step {step}: W {tree['0']['W'].shape}, step leaf {tree['2']}")
+    ms = [r["seconds"] * 1e3 for r in log[1:]]
+    print(f"  pipeline launcher: {steps} steps in {wall:.1f} s wall (spawn included); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; ms per step, steps 2-{steps}: median {np.median(ms):.2f}, min {min(ms):.2f}, "
+          f"max {max(ms):.2f}; checkpoint step {step} restored, W {tuple(tree['0']['W'].shape)} | {_card(device)}")
+    return {"median_ms": float(np.median(ms)), "first_loss": losses[0], "last_loss": losses[-1]}
+
+
+def _tanh_layer(x, lp):
+    return torch.tanh(x @ lp["W"])
+
+
+def _sum_sq(y, aux):
+    d = (y - aux["tgt"]).float()
+    return torch.sum(d * d), float(d.numel())
+
+
+def _schedule_rank(rank, cell: Dict[str, int], micros, reps: int) -> Dict:
+    """One stage of part b: both schedules at each M in ``micros``, the
+    loss and the gathered gradients held (on rank 0) against the card's own
+    sequential stack, each rank's peak memory of the call, and its time
+    (median of ``reps`` calls after the checked one)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.pipeline import StageWire, pipeline_value_and_grad, stack_stage_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, D, MB, SEQ = cell["S"], cell["D"], cell["MB"], cell["SEQ"]
+    L, dev, on_card = 2 * S, rank.device, rank.device.type == "cuda"
+    mesh = init_device_mesh(rank.mesh_device, (S,), mesh_dim_names=("pp",))
+    wire = StageWire(mesh, "pp", dev)
+    rng = np.random.default_rng(0)
+    Ws = (rng.standard_normal((L, D, D)) * D**-0.5).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((max(micros), MB, SEQ, D)).astype(np.float32)).to(dev)
+    tgt = torch.from_numpy(rng.standard_normal((max(micros), MB, SEQ, D)).astype(np.float32)).to(dev)
+    staged = stack_stage_params({"W": torch.from_numpy(Ws)}, S)
+    local = {"W": staged["W"][rank.rank : rank.rank + 1].to(dev)}
+    out: Dict = {"route": rank.route, "backend": rank.backend}
+    for M in micros:
+        xs, aux = x[:M], {"tgt": tgt[:M]}
+        if rank.rank == 0:  # the card's own sequential stack, microbatch by microbatch
+            W = torch.from_numpy(Ws).to(dev).requires_grad_()
+            l_ref, g_ref = 0.0, torch.zeros_like(W)
+            for m in range(M):
+                y = xs[m]
+                for i in range(L):
+                    y = _tanh_layer(y, {"W": W[i]})
+                l, c = _sum_sq(y, {"tgt": tgt[m]})
+                (g,) = torch.autograd.grad(l, W)
+                l_ref, g_ref = l_ref + float(l.detach()), g_ref + g
+        for sched in ("1f1b", "gpipe"):
+            # a first call warms up (cuBLAS's workspace lands in it); the
+            # second is checked and its peak memory read
+            pipeline_value_and_grad(mesh, _tanh_layer, _sum_sq, local, xs, aux, schedule=sched, wire=wire)
+            if on_card:
+                torch.cuda.synchronize(dev)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            (loss, count), grads = pipeline_value_and_grad(mesh, _tanh_layer, _sum_sq, local, xs, aux,
+                                                           schedule=sched, wire=wire)
+            peak = torch.cuda.max_memory_allocated(dev) - base if on_card else None
+            times = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                pipeline_value_and_grad(mesh, _tanh_layer, _sum_sq, local, xs, aux, schedule=sched, wire=wire)
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t) * 1e3)
+            full = wire.gather(grads["W"][0]).reshape(L, D, D)
+            entry = {"peak_bytes": peak, "stash_slots": wire.stash_shape[0], "ms": times}
+            if rank.rank == 0:
+                err = (full - g_ref).abs()
+                entry.update(
+                    loss=float(loss), ref_loss=l_ref,
+                    loss_ok=abs(float(loss) - l_ref) <= 1e-6 * abs(l_ref),
+                    grad_max_abs=float(err.max()),
+                    grad_ok=bool((err <= 1e-7 + 1e-5 * g_ref.abs()).all()),
+                )
+            out[M, sched] = entry
+    return out
+
+
+def pipeline_schedule_phase(workdir: str, device="cuda", cell=PIPELINE_CELL, micros=PIPELINE_MICRO,
+                            reps: int = SCHEDULE_REPS) -> Dict:
+    """Part b: both schedules on S ranks against the card's own sequential
+    stack (``tests/test_pipeline_1f1b.py:71-78``'s bars: loss rtol 1e-6,
+    gradients rtol 1e-5 / atol 1e-7), and 1F1B's peak memory below
+    GPipe's on every rank at the largest M (the counterpart of the
+    reference's compiled ``temp_size_in_bytes`` gate)."""
+    from repro_torch.dist.ranks import spawn_ranks
+
+    kind = torch.device(device).type
+    ranks = spawn_ranks(_schedule_rank, cell["S"], workdir, args=(cell, tuple(micros), reps), device=kind,
+                        timeout_s=300)
+    card = _card(device)
+    mb_bytes = cell["MB"] * cell["SEQ"] * cell["D"] * 4
+    print(f"  pipeline schedules: S {cell['S']}, L {2 * cell['S']}, D {cell['D']}, MB {cell['MB']}, "
+          f"SEQ {cell['SEQ']} ({mb_bytes} B a stash slot), {ranks[0]['backend']}, hops through "
+          f"{ranks[0]['route']} | {card}")
+    out = {}
+    for M in micros:
+        for sched in ("1f1b", "gpipe"):
+            r0 = ranks[0][M, sched]
+            ms = [float(np.median([r[M, sched]["ms"][i] for r in ranks])) for i in range(reps)]
+            peaks = [r[M, sched]["peak_bytes"] for r in ranks]
+            print(f"  M {M} {sched}: loss {r0['loss']:.6f} vs sequential {r0['ref_loss']:.6f}, gradients max abs "
+                  f"diff {r0['grad_max_abs']:.3e} (bars {'held' if r0['loss_ok'] and r0['grad_ok'] else 'MISSED'}); "
+                  f"stash {r0['stash_slots']} slots; peak per rank {peaks} B; ms per call: median "
+                  f"{np.median(ms):.3f}, min {min(ms):.3f}, max {max(ms):.3f} ({2 * (M + cell['S'] - 1)} ticks) "
+                  f"| {card}")
+            if not (r0["loss_ok"] and r0["grad_ok"]):
+                raise AssertionError(f"M {M} {sched}: the pipeline left the sequential stack's bars")
+            out[M, sched] = {"median_ms": float(np.median(ms)), "peaks": peaks}
+    big = max(micros)
+    if kind == "cuda":
+        over = [i for i, (a, b) in enumerate(zip(out[big, "1f1b"]["peaks"], out[big, "gpipe"]["peaks"])) if a >= b]
+        if over:
+            raise AssertionError(f"M {big}: 1F1B's peak is not below GPipe's on ranks {over}")
+    return out
+
+
+def sharded_step_phase(cfg, workdir: str, device="cuda", batch: int = 2, seq: int = 128) -> Dict:
+    """Part c: one train step of ``cfg`` under ``use_rules(rules_for(cfg,
+    make_mesh((1, 1), ("data", "model"))))``, the state and the batch
+    distributed by their logical axes, against the same step without
+    rules (bitwise, or the largest difference printed), with 0 collectives
+    (``CommDebugMode``); then a checkpoint written unsharded and restored
+    with ``shardings=`` onto the mesh, bitwise.  Runs on a process group of
+    one rank, which it starts and ends."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.checkpoint import restore_state, save_state
+    from repro_torch.dist.ranks import backend_for
+    from repro_torch.dist.sharding import distribute_tree, map_axes, use_rules
+    from repro_torch.launch.mesh import describe_mesh, make_mesh, rules_for
+    from repro_torch.models import get_model
+    from repro_torch.train import make_init_state, make_train_step, state_logical_axes
+    from repro_torch.train.state import tree_leaves, tree_map
+
+    kind = torch.device(device).type
+    backend, _ = backend_for(1, kind)
+    os.makedirs(workdir, exist_ok=True)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(workdir, "rendezvous"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=kind)
+        rules = rules_for(cfg, mesh)
+        api, opt = get_model(cfg), _launcher_opt()
+        plain = make_init_state(api, opt)(torch.Generator(device=device).manual_seed(0), device)
+        plain.step.fill_(10)
+        axes = state_logical_axes(api.param_logical_axes(), plain.opt)
+        sharded = distribute_tree(tree_map(lambda t: t.clone(), plain), axes, rules)
+        b = _corpus_pipe(workdir, cfg, batch, seq, 1).batch_at(0)
+        step = make_train_step(api, opt)
+        t = time.perf_counter()
+        plain, m_plain = step(plain, b)
+        _sync(device)
+        plain_s = time.perf_counter() - t
+        with use_rules(rules), CommDebugMode() as comm:
+            t = time.perf_counter()
+            sb = distribute_tree(b, {k: ("batch", None) for k in b}, rules)
+            sharded, m_sharded = step(sharded, sb)
+            _sync(device)
+            sharded_s = time.perf_counter() - t
+        collectives = comm.get_total_counts()
+        pairs = list(zip(tree_leaves(sharded), tree_leaves(plain)))
+        same = all(a.to_local().dtype == c.dtype and torch.equal(a.to_local(), c) for a, c in pairs)
+        diff = max(float((a.to_local().float() - c.float()).abs().max()) for a, c in pairs)
+        loss_same = float(m_sharded["loss"]) == float(m_plain["loss"])
+        del sharded
+        root = os.path.join(workdir, "ckpt")
+        save_state(root, 11, plain)
+        shardings = map_axes(lambda a, leaf: (mesh, rules.placements(leaf.shape, a)), axes, plain)
+        t = time.perf_counter()
+        _, back = restore_state(root, target_struct=plain, shardings=shardings)
+        _sync(device)
+        restore_s = time.perf_counter() - t
+        restored = all(torch.equal(a.to_local(), c) for a, c in zip(tree_leaves(back), tree_leaves(plain)))
+        del back, plain
+    finally:
+        dist.destroy_process_group()
+    print(f"  sharded step: {cfg.name} {cfg.dtype}, {_depth(cfg)}, batch {batch} x {seq}, mesh "
+          f"{describe_mesh(mesh)} ({backend}): state and batch as DTensors, step {sharded_s:.3f} s against "
+          f"{plain_s:.3f} s plain; loss {'equal' if loss_same else 'DIFFERS'}; state after the step "
+          f"{'bitwise equal' if same else f'largest difference {diff:.3e}'}; {collectives} collectives; "
+          f"checkpoint restored with shardings= onto the mesh in {restore_s:.3f} s, "
+          f"{'bitwise' if restored else 'NOT bitwise'} | {_card(device)}")
+    if collectives != 0 or not restored or not loss_same:
+        raise AssertionError("the (1, 1) sharded step or the elastic restore left its bars")
+    return {"bitwise": same, "max_diff": diff, "collectives": collectives}
+
+
+def _gloo_card_collective(rank) -> str:
+    """What part c's two-rank try needs first: DTensor gathers a CUDA
+    tensor's shards over the mesh's group (``all_gather_into_tensor``)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+    x = distribute_tensor(torch.arange(8.0, device=rank.device).reshape(4, 2), mesh, [Replicate(), Shard(0)],
+                          src_data_rank=None)
+    full = x.redistribute(mesh, [Replicate(), Replicate()]).to_local()
+    torch.cuda.synchronize()
+    return f"{tuple(full.shape)} {float(full.sum())}"
+
+
+def gloo_mesh_try(workdir: str) -> str:
+    """Part c's last step: a (data=1, model=2) mesh of two ranks sharing
+    the card over gloo (NCCL refuses two ranks on one card).  gloo's
+    collectives take host tensors; a DTensor step's are CUDA tensors.  The
+    try runs the first collective such a step needs and reports whether
+    gloo carried it; a rank that gloo aborts is the answer, not a failure
+    of the phase."""
+    from repro_torch.dist.ranks import spawn_ranks
+
+    try:
+        got = spawn_ranks(_gloo_card_collective, 2, workdir, device="cuda", timeout_s=120)
+        return f"gloo carried all_gather_into_tensor of CUDA tensors: {got}"
+    except RuntimeError as e:
+        return f"gloo did not carry all_gather_into_tensor of CUDA tensors ({str(e).splitlines()[0]})"
+
+
+def distributed_phase(workdir: str, *, device="cuda", pipeline_args: List[str] = PIPELINE_ARGS,
+                      cell=PIPELINE_CELL, micros=PIPELINE_MICRO, reps: int = SCHEDULE_REPS, cut=None) -> Dict:
+    """The distributed path: part a through the launcher, part b the
+    schedules on the reference dry-run's cell, part c a sharded step of
+    ``cut`` (by default granite-3-2b at full width, depth cut to
+    ``CUT_LAYERS``, the training phase's cut).  The model kernels' launch
+    counts are set to 0 before the phase and must still be 0 after it."""
+    cut = cut or model_config(GRANITE, dtype="bfloat16", kernels=False, layers=CUT_LAYERS)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    print(f"distributed phase | {_card(device)}", flush=True)
+    launch = pipeline_launch_phase(os.path.join(workdir, "pp_launch"), pipeline_args, device)
+    schedules = pipeline_schedule_phase(os.path.join(workdir, "pp_sched"), device, cell, micros, reps)
+    sharded = sharded_step_phase(cut, os.path.join(workdir, "sharded"), device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        print(f"  (data=1, model=2), two ranks on the card over gloo: {gloo_mesh_try(os.path.join(workdir, 'gloo'))}")
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the distributed phase launched model kernels: {launches}")
+    print(f"distributed phase: {time.perf_counter() - t0:.1f} s, kernel launches {launches}", flush=True)
+    return {"launch": launch, "schedules": schedules, "sharded": sharded}
+
+
+def four_card_phase(workdir: str) -> None:
+    """Parts a and b of :func:`distributed_phase` with a card a rank
+    (NCCL, hops as device tensors).  Run it with four cards:
+    python3 -c "import tempfile, chip_smoke; chip_smoke.four_card_phase(tempfile.mkdtemp())"
+    """
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError(f"four_card_phase needs 4 cards, found {torch.cuda.device_count()}")
+    print(f"four-card phase | {torch.cuda.device_count()} x {_card('cuda')}", flush=True)
+    t0 = time.perf_counter()
+    pipeline_launch_phase(os.path.join(workdir, "pp_launch"), PIPELINE_ARGS)
+    pipeline_schedule_phase(os.path.join(workdir, "pp_sched"))
+    print(f"four-card phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # -------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -1996,6 +2328,8 @@ def main(argv=None) -> int:
     }
     with tempfile.TemporaryDirectory() as tmp:
         training_phase(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed_phase(tmp)
     attention["launches"] = sum(r["flash_attention"] for r in runs.values())
     attention["launches_by_run"] = {name: r["flash_attention"] for name, r in runs.items()}
     scan["launches"] = runs[ZAMBA2]["mamba2_ssd"]

@@ -19,8 +19,12 @@ format, so each package reads the other's checkpoints:
 - **Restore**: ``restore_state`` returns numpy leaves, or, given a
   ``target_struct``, that tree's structure with each leaf as a tensor of
   the target leaf's dtype and device (2-byte void becomes
-  ``torch.bfloat16``).  The reference's ``shardings`` (elastic restore onto
-  a mesh) waits for the port's ``dist.sharding``.
+  ``torch.bfloat16``).
+- **Elastic restore**: given ``shardings`` (a tree of ``(DeviceMesh,
+  placements)`` matching the state), each leaf comes back as a DTensor on
+  that mesh whose local shard is the matching slice of the saved array,
+  whatever mesh the state was saved from.  A DTensor leaf is saved whole
+  (``full_tensor``, a collective every rank of its mesh joins).
 - **Retention**: keep the last ``keep`` checkpoints (garbage-collect the
   rest), never deleting the one being written.
 """
@@ -38,6 +42,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.dist.sharding import is_dtensor
 
 __all__ = ["save_state", "restore_state", "CheckpointManager"]
 
@@ -87,6 +95,8 @@ def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     """A host copy of one leaf that later in-place updates cannot reach,
     and its manifest dtype."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2")), _BF16
@@ -96,16 +106,20 @@ def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     return a, a.dtype.str
 
 
+def _as_tensor(a: np.ndarray) -> torch.Tensor:
+    """A loaded leaf as a host tensor; 2-byte void is bf16."""
+    a = np.asarray(a, order="C")
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _to_tensor(a: np.ndarray, like: Any) -> Any:
     """A loaded leaf as ``like``'s dtype and device when ``like`` is a
     tensor; 2-byte void is bf16."""
     if not isinstance(like, torch.Tensor):
         return a
-    a = np.asarray(a, order="C")
-    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
-        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a)
+    t = _as_tensor(a)
     if t.dtype != like.dtype or tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf {t.dtype} {tuple(t.shape)} != target {like.dtype} {tuple(like.shape)}")
     return t.to(like.device)
@@ -201,16 +215,54 @@ def available_steps(root: str) -> List[int]:
 
 
 
+def _is_sharding(s: Any) -> bool:
+    return s is None or (isinstance(s, tuple) and len(s) == 2 and isinstance(s[0], DeviceMesh))
+
+
+def _place(tree: Any, shardings: Any) -> Any:
+    """``tree``'s leaves distributed as ``shardings`` says: a ``(DeviceMesh,
+    placements)`` leaf makes a DTensor of the matching slice (no message is
+    sent: every rank read the whole array), ``None`` plain tensors for the
+    whole subtree."""
+    if shardings is None:
+        if isinstance(tree, dict):
+            return {k: _place(v, None) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(_place(v, None) for v in tree)
+        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            return dataclasses.replace(tree, **{f.name: _place(getattr(tree, f.name), None)
+                                                for f in dataclasses.fields(tree)})
+        return tree if isinstance(tree, torch.Tensor) else _as_tensor(np.asarray(tree))
+    if _is_sharding(shardings):
+        t = tree if isinstance(tree, torch.Tensor) else _as_tensor(tree)
+        mesh, placements = shardings
+        return distribute_tensor(t, mesh, list(placements), src_data_rank=None)
+    if isinstance(shardings, dict):
+        return {k: _place(tree[k], shardings[k]) for k in shardings}
+    if dataclasses.is_dataclass(shardings) and not isinstance(shardings, type):
+        return dataclasses.replace(shardings, **{
+            f.name: _place(getattr(tree, f.name), getattr(shardings, f.name))
+            for f in dataclasses.fields(shardings)
+        })
+    if isinstance(shardings, (tuple, list)):
+        return type(shardings)(_place(tree[i], s) for i, s in enumerate(shardings))
+    raise TypeError(f"not a shardings tree node: {shardings!r}")
+
+
 def restore_state(
     root: str,
     step: Optional[int] = None,
     *,
+    shardings: Optional[Any] = None,
     target_struct: Optional[Any] = None,
 ) -> Tuple[int, Any]:
-    """Load a checkpoint.  ``target_struct``: optional tree whose structure
-    is used to rebuild typed containers (e.g. TrainState dataclasses) from
-    the saved plain tree; its tensor leaves give each loaded leaf its dtype
-    and device."""
+    """Load a checkpoint.  ``shardings``: optional tree (matching the
+    state) of ``(DeviceMesh, placements)`` or ``None`` leaves — each leaf
+    comes back as a DTensor on that mesh (elastic restore onto another
+    mesh) or a plain tensor.  ``target_struct``: optional tree whose
+    structure is used to rebuild typed containers (e.g. TrainState
+    dataclasses) from the saved plain tree; its tensor leaves give each
+    loaded leaf its dtype and device."""
     steps = available_steps(root)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {root}")
@@ -226,6 +278,8 @@ def restore_state(
     if target_struct is not None:
         flat = [_to_tensor(leaves[n], like) for n, like in _flatten_with_paths(target_struct)]
         tree = _unflatten(target_struct, iter(flat))
+    if shardings is not None:
+        tree = _place(tree, shardings)
     return step, tree
 
 

@@ -14,8 +14,8 @@ The prefetcher is a daemon thread running ``prefetch_depth`` steps ahead
 
 The port of ``repro.data.pipeline``: ``TokenBatchPipeline`` is the
 reference's, line for line (numpy over ``ScanExecutor``).  ``shard_batch``
-places a host batch on one device; the mesh form waits for the port's
-``dist.sharding``.
+places a host batch on one device; its mesh form is
+``dist.sharding.distribute_tree`` with the batch dims' logical axes.
 """
 
 from __future__ import annotations

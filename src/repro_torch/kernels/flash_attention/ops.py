@@ -4,6 +4,8 @@ A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
 launches the kernel or raises.  The kernel has no backward, so under
 autograd (grad mode on and an input that requires grad) the wrapper raises
 on every device, as the reference cannot differentiate its Pallas kernel.
+A DTensor (a model run under sharding rules) raises too: the reference
+shards only with its kernels off.
 The kernel reads the model layout directly and masks the ragged tail
 itself, so the reference wrapper's head moves and padding have no
 counterpart.  The kernel's tiles are fixed by the head group and the dtype
@@ -18,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels.flash_attention.kernel import flash_attention_call
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -41,6 +44,11 @@ def flash_attention(
         raise ValueError(f"{H} query heads do not divide into {KV} KV heads")
     if q_block <= 0 or k_block <= 0:
         raise ValueError(f"block sizes must be positive, got {q_block}, {k_block}")
+    if any(is_dtensor(t) for t in (q, k, v)):
+        raise TypeError(
+            "flash_attention takes no DTensor: the kernel runs on one card's whole tensors; under "
+            "sharding rules run the model with use_pallas_kernels=False, as the reference does"
+        )
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention has no backward kernel; the reference cannot differentiate its "

@@ -10,7 +10,9 @@ layers,
 The decode cache carries SSM states for every mamba layer plus one KV cache
 per shared-block application.  Under autograd the Mamba2 layers are
 recomputed in the backward pass whenever ``cfg.remat`` is not ``"none"``
-and the shared block is not, as in the reference.
+and the shared block is not, as in the reference.  Activations carry the
+reference's logical sharding annotations (``dist.sharding.shard``, the
+identity unless rules are active).
 """
 
 from __future__ import annotations
@@ -21,14 +23,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
+from repro_torch.dist.sharding import shard
 from repro_torch.models import mamba as _mamba
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import attention_decode, attention_train, mlp_apply, rms_norm
 
 __all__ = [
     "init_params",
+    "param_logical_axes",
     "forward",
     "init_decode_cache",
+    "cache_logical_axes",
     "prefill",
     "decode_step",
 ]
@@ -71,15 +76,33 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device: _mamba.Device = N
     return base
 
 
+def param_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    axes = _mamba.param_logical_axes(cfg)
+    axes["shared_attn"] = {
+        "ln1": (None,),
+        "ln2": (None,),
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", None, None),
+        "wv": ("embed", None, None),
+        "wo": ("heads", "head_dim", "embed"),
+        "mlp": {
+            "w1": ("embed", "mlp"),
+            "w3": ("embed", "mlp"),
+            "w2": ("mlp", "embed"),
+        },
+    }
+    return axes
+
+
 def _shared_block_train(cfg, sp, x, positions):
     """The shared block on the full sequence; returns (x, k, v)."""
     h = rms_norm(x, sp["ln1"], cfg.norm_eps)
     a, k, v = attention_train(
         cfg, h, sp["wq"], sp["wk"], sp["wv"], sp["wo"], positions, return_kv=True
     )
-    x = x + a
+    x = shard(x + a, ("batch", "seq", None))
     h = rms_norm(x, sp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(cfg, h, sp["mlp"]), k, v
+    return shard(x + mlp_apply(cfg, h, sp["mlp"]), ("batch", "seq", None)), k, v
 
 
 def forward(
@@ -89,7 +112,7 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     B, S = tokens.shape
-    x = _mamba._embed(cfg, params, tokens, prefix_embeds)
+    x = shard(_mamba._embed(cfg, params, tokens, prefix_embeds), ("batch", "seq", None))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     layers = _mamba.unstack(params["layers"])
     mode = "none" if cfg.remat == "none" else "full"
@@ -112,6 +135,14 @@ def init_decode_cache(
     return cache
 
 
+def cache_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    axes = _mamba.cache_logical_axes(cfg)
+    axes["k"] = (None, "batch", "kv_seq", None, None)
+    axes["v"] = (None, "batch", "kv_seq", None, None)
+    axes["kv_pos"] = ("batch", None)
+    return axes
+
+
 def prefill(
     cfg: ArchConfig,
     params: Dict[str, Any],
@@ -122,7 +153,7 @@ def prefill(
     B, S = tokens.shape
     T = max_len or S
     dt = _mamba._dtype(cfg)
-    x = _mamba._embed(cfg, params, tokens, prefix_embeds)
+    x = shard(_mamba._embed(cfg, params, tokens, prefix_embeds), ("batch", "seq", None))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
     layers = _mamba.unstack(params["layers"])
@@ -161,7 +192,10 @@ def decode_step(
     """One token per sequence.  The cache's ``ssm``, ``conv``, ``k`` and
     ``v`` tensors are updated in place (the reference donates them to jit)
     and returned in a new dict with the new ``kv_pos`` and positions."""
-    x = params["embed"][tokens]  # (B,1,D)
+    # constrain after the table lookup, as the reference does: there the
+    # partial product would otherwise reach the KV write and re-replicate
+    # the whole cache a layer
+    x = shard(_mamba.lookup(params["embed"], tokens), ("batch", None, None))  # (B,1,D)
     B = tokens.shape[0]
     pos = cache["pos"]  # (B,)
     T = cache["k"].shape[2]

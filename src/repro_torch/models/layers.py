@@ -5,9 +5,9 @@ the dense MLPs and the capacity-based MoE layer.
 The port of ``repro.models.layers``.  Every function keeps the reference's
 dtype order: what the reference computes in f32 (norm statistics, RoPE
 angles, attention scores and softmax, router logits and gates) is computed
-in f32 here, and what it computes in the activation dtype stays in it.  The
-reference's logical sharding constraints (``shard``) are the identity on one
-device and are left out.
+in f32 here, and what it computes in the activation dtype stays in it.  Every
+materialised tensor carries the reference's logical sharding constraint
+(``dist.sharding.shard``), the identity unless sharding rules are active.
 
 Attention on the full sequence takes the flash-attention kernel when
 ``cfg.use_pallas_kernels`` is set (``kernels.flash_attention``: the CUDA
@@ -30,6 +30,7 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import einsum, is_dtensor, shard
 from repro_torch.models.config import ArchConfig
 
 __all__ = [
@@ -109,9 +110,9 @@ def attention_train(
     can fill the decode cache without recomputing projections."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B, S, D = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, wq)
-    k = torch.einsum("bsd,dhk->bshk", x, wk)
-    v = torch.einsum("bsd,dhk->bshk", x, wv)
+    q = shard(einsum("bsd,dhk->bshk", x, wq), ("batch", None, "act_heads", None))
+    k = shard(einsum("bsd,dhk->bshk", x, wk), ("batch", None, None, None))
+    v = shard(einsum("bsd,dhk->bshk", x, wv), ("batch", None, None, None))
     q = apply_rope(q, positions[None, :], cfg.rope_theta)
     k = apply_rope(k, positions[None, :], cfg.rope_theta)
     scale = hd**-0.5
@@ -134,12 +135,14 @@ def attention_train(
         else:
             # f32 products of the activation-dtype inputs, f32 sums (the
             # reference's preferred_element_type=f32)
-            scores = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+            scores = einsum("bshk,bthk->bhst", q.float(), k.float()) * scale
+            scores = shard(scores, ("batch", "act_heads", None, None))
             mask = _causal_mask(S, S, window=cfg.sliding_window, device=x.device)
             scores = torch.where(mask[None, None], scores, _NEG_INF)
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
-            out = torch.einsum("bhst,bthk->bshk", probs, v)
-    proj = torch.einsum("bshk,hkd->bsd", out, wo)
+            out = einsum("bhst,bthk->bshk", probs, v)
+    out = shard(out, ("batch", None, "act_heads", None))
+    proj = einsum("bshk,hkd->bsd", out, wo)
     if return_kv:
         return proj, k_kv, v_kv
     return proj
@@ -175,14 +178,14 @@ def _blocked_causal_attention(
                 break
             kblk = k[:, ki * KB : (ki + 1) * KB]
             vblk = v[:, ki * KB : (ki + 1) * KB]
-            s = torch.einsum("bqhk,bthk->bhqt", qblk, kblk.float()) * scale
+            s = einsum("bqhk,bthk->bhqt", qblk, kblk.float()) * scale
             kpos = ki * KB + torch.arange(KB, device=q.device)[None, :]
             s = torch.where((kpos <= qpos)[None, None], s, _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
+            acc = acc * corr[..., None] + einsum(
                 "bhqt,bthk->bhqk", p.to(vblk.dtype).float(), vblk.float()
             )
             m = m_new
@@ -213,7 +216,7 @@ def _blocked_local_attention(
     v_prev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
     kk = torch.cat([k_prev, kb], dim=2)  # (B, nb, 2W, H, hd)
     vv = torch.cat([v_prev, vb], dim=2)
-    scores = torch.einsum("bnqhk,bnthk->bnhqt", qb.float(), kk.float())
+    scores = einsum("bnqhk,bnthk->bnhqt", qb.float(), kk.float())
     scores.mul_(scale)
     qpos = torch.arange(W, device=q.device)[:, None] + W  # query index within the 2W keys
     kpos = torch.arange(2 * W, device=q.device)[None, :]
@@ -223,7 +226,7 @@ def _blocked_local_attention(
     scores.masked_fill_(~allow[None, :, None], _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     del scores
-    out = torch.einsum("bnhqt,bnthk->bnqhk", probs, vv)
+    out = einsum("bnhqt,bnthk->bnqhk", probs, vv)
     return out.reshape(B, S, H, hd)
 
 
@@ -247,35 +250,53 @@ def attention_decode(
     tensors are returned.  Returns (output (B,1,D), k_cache, v_cache)."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, wq)  # (B,1,H,hd)
-    k = torch.einsum("bsd,dhk->bshk", x, wk)  # (B,1,KV,hd)
-    v = torch.einsum("bsd,dhk->bshk", x, wv)
+    q = einsum("bsd,dhk->bshk", x, wq)  # (B,1,H,hd)
+    k = einsum("bsd,dhk->bshk", x, wk)  # (B,1,KV,hd)
+    v = einsum("bsd,dhk->bshk", x, wv)
+    # constrain the (B,1,·,hd) rows before they reach the cache write, as
+    # the reference does (there XLA would otherwise all-reduce cache-sized
+    # buffers a layer)
+    q = shard(q, ("batch", None, "act_heads", None))
+    k = shard(k, ("batch", None, None, None))
+    v = shard(v, ("batch", None, None, None))
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
 
-    bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+    if is_dtensor(k_cache):
+        # DTensor has no strategy for an index_put_ into a dim it shards (the
+        # cache's kv_seq): write through a one-hot of the slots, a pointwise
+        # select that leaves every shard where it is
+        T = k_cache.shape[1]
+        hit = (torch.arange(T, device=x.device)[None, :] == slot[:, None])[:, :, None, None]
+        k_cache.copy_(torch.where(hit, k.to(k_cache.dtype), k_cache))
+        v_cache.copy_(torch.where(hit, v.to(v_cache.dtype), v_cache))
+    else:
+        bidx = torch.arange(B, device=x.device)
+        k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+    k_cache = shard(k_cache, ("batch", "kv_seq", None, None))
+    v_cache = shard(v_cache, ("batch", "kv_seq", None, None))
 
     # grouped-query attention over the cache (no KV repeat: q -> (B,1,KV,G,hd))
     G = H // KV
     qg = q.reshape(B, 1, KV, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(), k_cache.float()) * (hd**-0.5)
+    scores = einsum("bskgh,btkh->bkgst", qg.float(), k_cache.float()) * (hd**-0.5)
     scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v_cache).reshape(B, 1, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, wo), k_cache, v_cache
+    out = einsum("bkgst,btkh->bskgh", probs, v_cache).reshape(B, 1, H, hd)
+    return einsum("bshk,hkd->bsd", out, wo), k_cache, v_cache
 
 
 # ------------------------------------------------------------------- MLPs
 def mlp_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Dense MLP: swiglu (w1·silu ⊙ w3) | relu2 (squared ReLU) | gelu."""
-    h = torch.einsum("bsd,df->bsf", x, w["w1"])
+    h = einsum("bsd,df->bsf", x, w["w1"])
     if cfg.mlp == "swiglu":
-        h = F.silu(h) * torch.einsum("bsd,df->bsf", x, w["w3"])
+        h = F.silu(h) * einsum("bsd,df->bsf", x, w["w3"])
     else:
         h = _act(cfg, h)
-    return torch.einsum("bsf,fd->bsd", h, w["w2"])
+    h = shard(h, ("batch", None, "act_mlp"))
+    return einsum("bsf,fd->bsd", h, w["w2"])
 
 
 def _act(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -289,12 +310,15 @@ def _act(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
 
 def _expert_ffn(cfg: ArchConfig, xs: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """xs: (E, C, D) -> (E, C, D) through per-expert weights (E, D, F)."""
-    h = torch.einsum("ecd,edf->ecf", xs, w["w1"])
+    h = einsum("ecd,edf->ecf", xs, w["w1"])
     if cfg.mlp == "swiglu":
-        h = F.silu(h) * torch.einsum("ecd,edf->ecf", xs, w["w3"])
+        h = F.silu(h) * einsum("ecd,edf->ecf", xs, w["w3"])
     else:
         h = _act(cfg, h)
-    return torch.einsum("ecf,efd->ecd", h, w["w2"])
+    # the hidden (E, C, F) covers both expert layouts: expert-parallel (E
+    # over "model") and TP-within-expert (F over "model")
+    h = shard(h, ("act_experts", "batch", "act_mlp"))
+    return einsum("ecf,efd->ecd", h, w["w2"])
 
 
 _MOE_GROUP = 512  # tokens per dispatch group
@@ -321,7 +345,7 @@ def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> t
     C = max(int(math.ceil(g_size * K / E * cfg.capacity_factor)), 1)
     xg = x.reshape(G, g_size, D)
 
-    logits = torch.einsum("gtd,de->gte", xg.float(), w["router"].float())  # f32
+    logits = einsum("gtd,de->gte", xg.float(), w["router"].float())  # f32
     gate_vals, expert_ids = torch.topk(logits, K, dim=-1)  # (G, Tg, K), descending
     gates = torch.softmax(gate_vals, dim=-1)
 
@@ -341,12 +365,13 @@ def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> t
     # lands on the extra class C, which is cut off
     slot = torch.where(keep, pos_in_expert, float(C)).long()
     cap_oh = F.one_hot(slot, C + 1)[..., :C].float()
-    dispatch = torch.einsum("gtke,gtkc->gtec", onehot, cap_oh)
-    combine = torch.einsum("gtk,gtke,gtkc->gtec", gates, onehot, cap_oh)
+    dispatch = einsum("gtke,gtkc->gtec", onehot, cap_oh)
+    combine = einsum("gtk,gtke,gtkc->gtec", gates, onehot, cap_oh)
 
-    expert_in = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
-    expert_out = _expert_ffn(cfg, expert_in.reshape(E, G * C, D), w).reshape(E, G, C, D)
-    out = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype), expert_out)
+    expert_in = einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
+    expert_in = shard(expert_in.reshape(E, G * C, D), ("act_experts", "batch", None))
+    expert_out = _expert_ffn(cfg, expert_in, w).reshape(E, G, C, D)
+    out = einsum("gtec,egcd->gtd", combine.to(x.dtype), expert_out)
 
     if cfg.moe_shared_expert:
         out = out + mlp_apply(cfg, xg, w["shared"])
@@ -354,6 +379,18 @@ def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> t
 
 
 # ------------------------------------------------------------------- loss
+def gold_logits(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``lg[..., labels]``: each position's logit of its label.  On a
+    DTensor it is a masked sum over the vocab instead of ``aten.gather``,
+    whose strategy over a sharded vocab yields a masked partial that fails
+    to reduce once the batch is redistributed; the sum shards over the
+    vocab and adds one exact term to zeros."""
+    if is_dtensor(lg):
+        hit = labels[..., None] == torch.arange(lg.shape[-1], device=lg.device)
+        return torch.where(hit, lg, 0.0).sum(dim=-1)
+    return torch.gather(lg, -1, labels[..., None].long())[..., 0]
+
+
 def cross_entropy(
     logits: torch.Tensor,  # (B, S, V) any float dtype
     labels: torch.Tensor,  # (B, S) int
@@ -365,7 +402,7 @@ def cross_entropy(
     if softcap > 0:
         lg = torch.tanh(lg / softcap) * softcap
     lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    gold = gold_logits(lg, labels)
     mask = mask.float()
     nll = (lse - gold) * mask
     count = torch.clamp(torch.sum(mask), min=1.0)

@@ -4,7 +4,9 @@ The port of ``repro.models.mamba``: the layer-stacked parameters are looped
 over in Python in place of ``lax.scan``, each layer under the config's
 rematerialisation policy (``layers.remat``), so ``forward`` trains under
 autograd as the reference's does under ``jax.grad``.  The decode "cache" is
-the constant-size SSM state and conv tail per layer.
+the constant-size SSM state and conv tail per layer.  Activations carry the
+reference's logical sharding annotations (``dist.sharding.shard``, the
+identity unless rules are active).
 """
 
 from __future__ import annotations
@@ -15,14 +17,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
+from repro_torch.dist.sharding import einsum, is_dtensor, shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import remat, rms_norm
 from repro_torch.models.ssm import mamba2_decode, mamba2_forward, mamba2_layer_param_shapes
 
 __all__ = [
     "init_params",
+    "param_logical_axes",
     "forward",
     "init_decode_cache",
+    "cache_logical_axes",
     "prefill",
     "decode_step",
 ]
@@ -72,6 +77,25 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device: Device = None) ->
     }
 
 
+def param_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "in_proj": ("layers", "embed", "mlp"),  # big: shard out dim over model
+            "conv_w": ("layers", None, None),
+            "conv_b": ("layers", None),
+            "A_log": ("layers", None),
+            "D_skip": ("layers", None),
+            "dt_bias": ("layers", None),
+            "norm": ("layers", None),
+            "out_proj": ("layers", "mlp", "embed"),
+            "ln": ("layers", None),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
     """The per-layer trees of a layer-stacked ``(L, …)`` tree: one
     ``torch.unbind`` per leaf, so the views share the stack's storage and
@@ -84,14 +108,36 @@ def unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
 
 def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    return shard(einsum("bsd,dv->bsv", x, params["lm_head"]), ("batch", "seq", "act_vocab"))
+
+
+def lookup(table, tokens):
+    """``table[tokens]`` through ``F.embedding``: the same rows as
+    indexing, but its backward sums each row's gradients in a fixed order
+    (indexing's accumulates them in parallel, so two runs of one step could
+    differ in the last bit).
+
+    A DTensor table sharded over the vocab meets ``aten.embedding``'s
+    strategy, a masked partial of the rows, which fails twice: with the
+    batch sharded too its mask takes the tokens' local shape, and without
+    sequence parallelism its backward cannot turn the gradient's partial
+    sum into the masked one.  So a table that is trained is made whole
+    over the vocab first (a gather of the table, as FSDP gathers every
+    weight), and one that is not (decode) reads replicated tokens, which
+    cost far less than the table."""
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate, Shard
+
+        if torch.is_grad_enabled() and table.requires_grad:
+            whole = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p for p in table.placements]
+            table = table.redistribute(table.device_mesh, whole)
+        elif is_dtensor(tokens):
+            tokens = tokens.redistribute(tokens.device_mesh, [Replicate()] * tokens.device_mesh.ndim)
+    return F.embedding(tokens, table)
 
 
 def _embed(cfg: ArchConfig, params, tokens, prefix_embeds) -> torch.Tensor:
-    # a fresh tensor; the embedding's backward sums each row's gradients in
-    # a fixed order (indexing's backward accumulates them in parallel, so
-    # two runs of one step could differ in the last bit)
-    x = F.embedding(tokens, params["embed"])
+    x = lookup(params["embed"], tokens)  # a fresh tensor
     if prefix_embeds is not None and cfg.prefix_len:
         x[:, : prefix_embeds.shape[1]] = prefix_embeds.to(x.dtype)
     return x
@@ -111,6 +157,7 @@ def run_layers(cfg: ArchConfig, x: torch.Tensor, layers: Sequence[Dict[str, Any]
     ssm, conv = [], []
     for lp in layers:
         x, ssm_state, conv_tail = block(x, lp)
+        x = shard(x, ("batch", "seq", None))
         ssm.append(ssm_state)
         conv.append(conv_tail)
     return x, ssm, conv
@@ -135,7 +182,7 @@ def forward(
     tokens: torch.Tensor,
     prefix_embeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    x = _embed(cfg, params, tokens, prefix_embeds)
+    x = shard(_embed(cfg, params, tokens, prefix_embeds), ("batch", "seq", None))
     x, _, _ = run_layers(cfg, x, unstack(params["layers"]), cfg.remat)
     return _logits(cfg, params, x)
 
@@ -153,6 +200,14 @@ def init_decode_cache(
     }
 
 
+def cache_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    return {
+        "ssm": ("layers", "batch", "ssm_heads", None, None),
+        "conv": ("layers", "batch", None, None),
+        "pos": ("batch",),
+    }
+
+
 def prefill(
     cfg: ArchConfig,
     params: Dict[str, Any],
@@ -161,7 +216,7 @@ def prefill(
     max_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens, prefix_embeds)
+    x = shard(_embed(cfg, params, tokens, prefix_embeds), ("batch", "seq", None))
     x, ssm_states, conv_tails = run_layers(cfg, x, unstack(params["layers"]))
     logits = _logits(cfg, params, x[:, -1:, :])
     cache = {
@@ -181,7 +236,7 @@ def decode_step(
     """One token per sequence.  The cache's ``ssm`` and ``conv`` tensors are
     updated in place (the reference donates them to jit) and returned in a
     new dict with the advanced positions."""
-    x = params["embed"][tokens]  # (B,1,D)
+    x = shard(lookup(params["embed"], tokens), ("batch", None, None))  # (B,1,D); see hybrid.decode_step
     x = decode_layers(cfg, x, unstack(params["layers"]), cache, 0)
     logits = _logits(cfg, params, x)
     return logits, {"ssm": cache["ssm"], "conv": cache["conv"], "pos": cache["pos"] + 1}

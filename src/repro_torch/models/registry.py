@@ -2,10 +2,10 @@
 
 ``get_model(cfg)`` returns a uniform functional API regardless of family:
 ``transformer`` serves the dense, MoE, audio and VLM families, ``mamba``
-the ``ssm`` family and ``hybrid`` the ``hybrid`` family.  The reference's
-``input_specs`` and ``cell_is_runnable`` (dry-run shape stand-ins) come with
-the ``launch/`` slice, and the logical sharding axes of its ``ModelAPI``
-with the ``dist/`` slice.
+the ``ssm`` family and ``hybrid`` the ``hybrid`` family; the API carries
+the logical sharding axes of the parameters and of the decode cache.  The
+reference's ``input_specs`` and ``cell_is_runnable`` (dry-run shape
+stand-ins) come with the cost-analysis slice of ``launch/``.
 """
 
 from __future__ import annotations
@@ -36,10 +36,12 @@ ARCH_IDS = [
 class ModelAPI:
     cfg: ArchConfig
     init_params: Callable
+    param_logical_axes: Callable
     forward: Callable
     prefill: Callable
     decode_step: Callable
     init_decode_cache: Callable
+    cache_logical_axes: Callable
 
 
 def _family_module(family: str):
@@ -60,6 +62,7 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init_params=lambda gen, device=None: mod.init_params(cfg, gen, device),
+        param_logical_axes=lambda: mod.param_logical_axes(cfg),
         forward=lambda params, tokens, prefix_embeds=None: mod.forward(
             cfg, params, tokens, prefix_embeds
         ),
@@ -70,6 +73,7 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
         init_decode_cache=lambda batch, max_len, device=None: mod.init_decode_cache(
             cfg, batch, max_len, device
         ),
+        cache_logical_axes=lambda: mod.cache_logical_axes(cfg),
     )
 
 

@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import einsum, shard
 from repro_torch.models.config import ArchConfig
 
 __all__ = [
@@ -69,18 +70,18 @@ def ssd_chunked(
     dA_cs = torch.cumsum(dA, dim=2)  # inclusive within-chunk cumsum
 
     # ---- intra-chunk: (C·Bᵀ ⊙ L) @ (dt·x)
-    scores = torch.einsum("bcqn,bctn->bcqt", Cc, Bc)
+    scores = einsum("bcqn,bctn->bcqt", Cc, Bc)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
     # mask INSIDE the exponent: no exp of a positive number is formed
     diff = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]  # (B,nc,Q,Q,H)
     diff = torch.where(tri[None, None, :, :, None], diff, -torch.inf)
     M = scores[..., None] * torch.exp(diff)
-    y_intra = torch.einsum("bcqth,bcth,bcthp->bcqhp", M, dtc, xc)
+    y_intra = einsum("bcqth,bcth,bcthp->bcqhp", M, dtc, xc)
 
     # ---- per-chunk contributed state: Σ_t exp(dA_sum − dA_cs[t]) dt_t B_t ⊗ x_t
     dA_sum = dA_cs[:, :, -1, :]  # (B,nc,H)
     w = dtc * torch.exp(dA_sum[:, :, None, :] - dA_cs)  # (B,nc,Q,H)
-    S_chunk = torch.einsum("bctn,bcth,bcthp->bchpn", Bc, w, xc)
+    S_chunk = einsum("bctn,bcth,bcthp->bchpn", Bc, w, xc)
 
     # ---- inter-chunk recurrence (loop over chunks)
     h = torch.zeros((B_, H, P, N), dtype=f32, device=xh.device) if h0 is None else h0.to(f32)
@@ -91,7 +92,7 @@ def ssd_chunked(
     h_prev = torch.stack(h_prevs, dim=1)  # (B,nc,H,P,N) state entering chunk
 
     # ---- inter-chunk output: exp(dA_cs[q]) · C_q · h_prev
-    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc, h_prev, torch.exp(dA_cs))
+    y_inter = einsum("bcqn,bchpn,bcqh->bcqhp", Cc, h_prev, torch.exp(dA_cs))
     y = (y_intra + y_inter).reshape(B_, S, H, P)[:, :S_real]
     return y.to(xh.dtype), h
 
@@ -107,9 +108,9 @@ def ssd_decode_step(
     """One-token recurrence: O(H·P·N) per step, state size constant."""
     f32 = torch.float32
     dA = (dt.to(f32) * A.to(f32))[:, :, None, None]  # (B,H,1,1)
-    dBx = torch.einsum("bn,bh,bhp->bhpn", Bm.to(f32), dt.to(f32), x.to(f32))
+    dBx = einsum("bn,bh,bhp->bhpn", Bm.to(f32), dt.to(f32), x.to(f32))
     h = h * torch.exp(dA) + dBx
-    y = torch.einsum("bhpn,bn->bhp", h, Cm.to(f32))
+    y = einsum("bhpn,bn->bhp", h, Cm.to(f32))
     return y.to(x.dtype), h
 
 
@@ -133,7 +134,7 @@ def conv_decode_step(
     b: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     window = torch.cat([conv_state, x_new[:, None, :]], dim=1)  # (B,K,C)
-    y = torch.einsum("bkc,kc->bc", window.float(), w.float())
+    y = einsum("bkc,kc->bc", window.float(), w.float())
     y = (y + b.float()).to(x_new.dtype)
     return y, window[:, 1:, :]
 
@@ -174,11 +175,11 @@ def mamba2_forward(
 
     B, S, D = x.shape
     d_in, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_head_dim
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    zxbcdt = einsum("bsd,de->bse", x, p["in_proj"])
     z, xbc_raw, dt_raw = _split_zxbcdt(cfg, zxbcdt)
     xbc = F.silu(causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
     xs, Bm, Cm = xbc[..., :d_in], xbc[..., d_in : d_in + N], xbc[..., d_in + N :]
-    xh = xs.reshape(B, S, H, P)
+    xh = shard(xs.reshape(B, S, H, P), ("batch", None, "ssm_heads", None))
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     if cfg.use_pallas_kernels and h0 is None:
@@ -190,7 +191,7 @@ def mamba2_forward(
     y = y + p["D_skip"].float()[None, None, :, None] * xh.float()
     y = y.reshape(B, S, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = einsum("bse,ed->bsd", y, p["out_proj"])
     K1 = cfg.conv_width - 1
     conv_tail = xbc_raw[:, S - K1 :, :] if S >= K1 else F.pad(xbc_raw, (0, 0, K1 - S, 0))
     return out, h_final, conv_tail
@@ -207,7 +208,7 @@ def mamba2_decode(
 
     B = x.shape[0]
     d_in, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_head_dim
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, E)
+    zxbcdt = einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # (B, E)
     z, xbc_raw, dt_raw = _split_zxbcdt(cfg, zxbcdt)
     xbc, conv_state = conv_decode_step(xbc_raw, conv_state, p["conv_w"], p["conv_b"])
     xbc = F.silu(xbc)
@@ -218,5 +219,5 @@ def mamba2_decode(
     y = y + p["D_skip"].float()[None, :, None] * xs.reshape(B, H, P).float()
     y = y.reshape(B, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = torch.einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
+    out = einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
     return out, ssm_state, conv_state

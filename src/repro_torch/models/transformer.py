@@ -8,6 +8,10 @@ under autograd as the reference's does under ``jax.grad``.  Modality frontends (
 InternViT patches) are stubs, as in the reference: precomputed prefix
 embeddings overwrite the first ``prefix_len`` token embeddings (early
 fusion).  Sliding-window archs keep a ring KV cache of ``window`` slots.
+Every materialised activation carries the reference's logical sharding
+annotation (``dist.sharding.shard``: the identity unless rules are active),
+and ``param_logical_axes`` / ``cache_logical_axes`` name the axes of the
+parameters and the decode cache.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
+from repro_torch.dist.sharding import einsum, shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     attention_decode,
@@ -27,13 +32,15 @@ from repro_torch.models.layers import (
     remat,
     rms_norm,
 )
-from repro_torch.models.mamba import Device, _dtype, _embed, normal, unstack
+from repro_torch.models.mamba import Device, _dtype, _embed, lookup, normal, unstack
 
 __all__ = [
     "init_params",
+    "param_logical_axes",
     "forward",
     "cache_len",
     "init_decode_cache",
+    "cache_logical_axes",
     "prefill",
     "decode_step",
 ]
@@ -45,6 +52,14 @@ def _mlp_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     if cfg.mlp == "swiglu":
         return {"w1": (D, F_), "w3": (D, F_), "w2": (F_, D)}
     return {"w1": (D, F_), "w2": (F_, D)}
+
+
+def _mlp_axes(cfg: ArchConfig, layered: bool) -> Dict[str, tuple]:
+    l = ("layers",) if layered else ()
+    ax = {"w1": l + ("embed", "mlp"), "w2": l + ("mlp", "embed")}
+    if cfg.mlp == "swiglu":
+        ax["w3"] = l + ("embed", "mlp")
+    return ax
 
 
 def _layer_shapes(cfg: ArchConfig) -> Dict[str, Any]:
@@ -68,6 +83,32 @@ def _layer_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     else:
         shapes["mlp"] = _mlp_shapes(cfg)
     return shapes
+
+
+def _layer_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    axes: Dict[str, Any] = {
+        "ln1": ("layers", None),
+        "ln2": ("layers", None),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        # KV projections are small under GQA: replicate across "model"
+        "wk": ("layers", "embed", None, None),
+        "wv": ("layers", "embed", None, None),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+    }
+    if cfg.num_experts:
+        moe = {
+            "router": ("layers", "embed", None),
+            "w1": ("layers", "experts", "embed", "expert_mlp"),
+            "w2": ("layers", "experts", "expert_mlp", "embed"),
+        }
+        if cfg.mlp == "swiglu":
+            moe["w3"] = ("layers", "experts", "embed", "expert_mlp")
+        if cfg.moe_shared_expert:
+            moe["shared"] = _mlp_axes(cfg, layered=True)
+        axes["moe"] = moe
+    else:
+        axes["mlp"] = _mlp_axes(cfg, layered=True)
+    return axes
 
 
 def _fan_in(name: str, s: tuple) -> int:
@@ -110,11 +151,22 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device: Device = None) ->
     return params
 
 
+def param_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": _layer_axes(cfg),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 # ------------------------------------------------------------------ forward
 def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, head)
+    return shard(einsum("bsd,dv->bsv", x, head), ("batch", "seq", "act_vocab"))
 
 
 def _ffn(cfg: ArchConfig, lp, h: torch.Tensor) -> torch.Tensor:
@@ -128,9 +180,9 @@ def _block(cfg: ArchConfig, lp, x: torch.Tensor, positions: torch.Tensor):
     a, k, v = attention_train(
         cfg, h, lp["wq"], lp["wk"], lp["wv"], lp["wo"], positions, return_kv=True
     )
-    x = x + a
+    x = shard(x + a, ("batch", "seq", None))
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h), k, v
+    return shard(x + _ffn(cfg, lp, h), ("batch", "seq", None)), k, v
 
 
 def forward(
@@ -141,7 +193,7 @@ def forward(
 ) -> torch.Tensor:
     """Scoring forward pass: (B, S) -> logits (B, S, V)."""
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens, prefix_embeds)
+    x = shard(_embed(cfg, params, tokens, prefix_embeds), ("batch", "seq", None))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     block = remat(cfg.remat, lambda x, lp: _block(cfg, lp, x, positions)[0])
     for lp in unstack(params["layers"]):
@@ -171,6 +223,15 @@ def init_decode_cache(
     }
 
 
+def cache_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    return {
+        "k": ("layers", "batch", "kv_seq", None, None),
+        "v": ("layers", "batch", "kv_seq", None, None),
+        "kv_pos": ("batch", None),
+        "pos": ("batch",),
+    }
+
+
 def prefill(
     cfg: ArchConfig,
     params: Dict[str, Any],
@@ -188,7 +249,7 @@ def prefill(
     dt = _dtype(cfg)
     ring = bool(cfg.sliding_window) and S > T
     shift = (S - T) % T if ring else 0
-    x = _embed(cfg, params, tokens, prefix_embeds)
+    x = shard(_embed(cfg, params, tokens, prefix_embeds), ("batch", "seq", None))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
     ks, vs = [], []
@@ -213,8 +274,8 @@ def prefill(
         ar = torch.arange(T, dtype=torch.int32, device=x.device)
         kv_pos = torch.where(ar < S, ar, -1)
     cache = {
-        "k": torch.stack(ks),
-        "v": torch.stack(vs),
+        "k": shard(torch.stack(ks), ("layers", "batch", "kv_seq", None, None)),
+        "v": shard(torch.stack(vs), ("layers", "batch", "kv_seq", None, None)),
         "kv_pos": kv_pos.expand(B, T).contiguous(),
         "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
     }
@@ -233,7 +294,7 @@ def decode_step(
     B = tokens.shape[0]
     pos = cache["pos"]  # (B,)
     T = cache["k"].shape[2]
-    x = params["embed"][tokens]  # (B,1,D)
+    x = shard(lookup(params["embed"], tokens), ("batch", None, None))  # (B,1,D)
 
     window = cfg.sliding_window
     slot = (pos % T if window > 0 else torch.clamp(pos, max=T - 1)).long()  # (B,)

@@ -1,12 +1,13 @@
-"""Training substrate: optimizers, train-step factory, host loop.  The
-pipeline-parallel twins and ``state_logical_axes`` wait for the port's
-``dist.pipeline`` and ``dist.sharding``."""
+"""Training substrate: optimizers, train-step factory, host loop, and the
+pipeline-parallel twins of the step (``make_pipeline_*``)."""
 
 from repro_torch.train.optimizer import OptimizerConfig, global_norm, make_optimizer, make_schedule
-from repro_torch.train.state import TrainState
+from repro_torch.train.state import TrainState, state_logical_axes
 from repro_torch.train.loop import (
     TrainHooks,
     make_init_state,
+    make_pipeline_init_state,
+    make_pipeline_train_step,
     make_train_step,
     train_loop,
 )
@@ -17,8 +18,11 @@ __all__ = [
     "make_schedule",
     "global_norm",
     "TrainState",
+    "state_logical_axes",
     "make_train_step",
     "make_init_state",
+    "make_pipeline_train_step",
+    "make_pipeline_init_state",
     "train_loop",
     "TrainHooks",
 ]

@@ -8,10 +8,12 @@ token-mean loss and gradients, clipping, the optimizer update and the
 metrics.  It runs eagerly under autograd, so there is no counterpart of
 ``jax.jit`` and no ``torch.compile``.  The step updates the state's tensors
 in place (the reference's launcher donates them to ``jit``) and returns the
-same state with its step advanced.  The host loop adds data,
-checkpointing, straggler and failure hooks, all pluggable so the FT tests
-can drive them.  The pipeline-parallel twins (``make_pipeline_*``) wait
-for the port's ``dist.pipeline``.
+same state with its step advanced.  ``make_pipeline_train_step`` is the
+pipeline-parallel twin: the same ``(state, batch) -> (state, metrics)``
+contract, with the loss and gradients from the 1F1B (or GPipe) schedule of
+``repro_torch.dist.pipeline``, each rank stepping its own stage's leaves.
+The host loop adds data, checkpointing, straggler and failure hooks, all
+pluggable so the FT tests can drive them.
 """
 
 from __future__ import annotations
@@ -24,18 +26,26 @@ import torch
 
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import gold_logits
 from repro_torch.models.registry import ModelAPI
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
 from repro_torch.train.state import TrainState, tree_leaves, tree_map
 
-__all__ = ["make_train_step", "make_init_state", "train_loop", "TrainHooks"]
+__all__ = [
+    "make_train_step",
+    "make_init_state",
+    "make_pipeline_train_step",
+    "make_pipeline_init_state",
+    "train_loop",
+    "TrainHooks",
+]
 
 
 def _loss_sum(api: ModelAPI, params, tokens, labels, loss_mask, prefix_embeds):
     logits = api.forward(params, tokens, prefix_embeds)
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    gold = gold_logits(lg, labels)
     nll = (lse - gold) * loss_mask
     return torch.sum(nll), torch.sum(loss_mask)
 
@@ -65,9 +75,9 @@ def value_and_grad(api: ModelAPI, params, batch: Dict[str, torch.Tensor], microb
         raise ValueError(f"global batch {B} not divisible by microbatches {M}")
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = tree_leaves(live)
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-    nll = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    count = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    # zeros_like: a sharded parameter (a DTensor) gets sums sharded alike
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+    nll = count = 0.0
     n = B // M
     for i in range(M):
         rows = slice(i * n, (i + 1) * n)
@@ -78,8 +88,8 @@ def value_and_grad(api: ModelAPI, params, batch: Dict[str, torch.Tensor], microb
             if grads[j] is not None:
                 a.add_(grads[j])
             grads[j] = None  # free each gradient once it is in the sums
-        nll += s.detach()
-        count += c
+        nll = nll + s.detach()
+        count = count + c
     return nll, count, acc
 
 
@@ -96,6 +106,88 @@ def make_train_step(api: ModelAPI, opt_cfg: OptimizerConfig) -> Callable:
         nll, count, grads = value_and_grad(api, state.params, batch, cfg.microbatches)
         # token-mean gradients & loss
         for g in grads:
+            g.div_(count)
+        loss = nll / count
+        stats = opt_update(grads, state.opt, state.params, state.step)
+        metrics = {
+            "loss": loss,
+            "tokens": count,
+            "grad_norm": stats["grad_norm"],
+            "lr": stats["lr"],
+        }
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+# ------------------------------------------------------- pipeline parallelism
+def make_pipeline_init_state(opt_cfg: OptimizerConfig):
+    """``init_state(stage_params) -> TrainState`` for a pipeline-parallel
+    layer stack: ``stage_params`` are this rank's ``(1, L/S, ...)`` leaves
+    (a slice of ``repro_torch.dist.pipeline.stack_stage_params``), on its
+    device; the optimizer state is built alike."""
+    init_opt, _ = make_optimizer(opt_cfg)
+
+    def init_state(stage_params) -> TrainState:
+        step = torch.zeros((), dtype=torch.int32, device=tree_leaves(stage_params)[0].device)
+        return TrainState(params=stage_params, opt=init_opt(stage_params), step=step)
+
+    return init_state
+
+
+def make_pipeline_train_step(
+    mesh,
+    layer_fn: Callable,
+    loss_fn: Callable,
+    opt_cfg: OptimizerConfig,
+    *,
+    microbatches: int,
+    axis: str = "pp",
+    schedule: str = "1f1b",
+) -> Callable:
+    """Pipeline-parallel ``(state, batch) -> (state, metrics)``, run by
+    every rank of ``mesh``'s ``axis``.
+
+    Same contract as ``make_train_step``, so it drops into ``train_loop``
+    and checkpointing unchanged, but the forward and backward run the 1F1B
+    (or GPipe) schedule over the ranks:
+
+    - ``state.params``: this rank's ``(1, L/S, ...)`` stage leaves (build
+      with ``stack_stage_params`` + ``make_pipeline_init_state``).
+    - ``batch``: ``{"inputs": (B, ...), "aux": tree of (B, ...)}`` (numpy
+      arrays or tensors, the same on every rank) — split into
+      ``microbatches`` microbatches here.
+    - ``layer_fn(carry, layer_params) -> carry`` is one layer;
+      ``loss_fn(y_mb, aux_mb) -> (loss_sum, count)`` scores the last
+      stage's output (the token-mean is formed here).
+
+    Every rank returns the same metrics: loss and count summed over the
+    stages, the gradient norm of the whole stack."""
+    from repro_torch.dist.pipeline import StageWire, pipeline_value_and_grad
+
+    wire: list = []  # this rank's StageWire, made at the first step on the state's device
+    _, opt_update = make_optimizer(opt_cfg, sum_over=lambda t: wire[0].sum(t))
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        device = state.step.device
+        if not wire:
+            wire.append(StageWire(mesh, axis, device))
+        inputs = torch.as_tensor(batch["inputs"]).to(device)
+        B, M = inputs.shape[0], microbatches
+        if B % M:
+            raise ValueError(f"global batch {B} not divisible by microbatches {M}")
+
+        def mb(x):
+            x = torch.as_tensor(x).to(device)
+            return x.reshape((M, B // M) + tuple(x.shape[1:]))
+
+        (nll, count), grads = pipeline_value_and_grad(
+            mesh, layer_fn, loss_fn, state.params, mb(inputs), tree_map(mb, batch["aux"]),
+            axis=axis, schedule=schedule, wire=wire[0],
+        )
+        # token-mean gradients & loss, exactly like make_train_step
+        for g in tree_leaves(grads):
             g.div_(count)
         loss = nll / count
         stats = opt_update(grads, state.opt, state.params, state.step)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,13 +61,18 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[torch.Tensor], torch.Tensor
     return schedule
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(_F32))) for l in tree_leaves(tree)))
+def global_norm(tree, sum_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """The f32 norm of every leaf of ``tree``; ``sum_over`` adds the sum of
+    squares over the ranks that hold the other parts of the same tree (the
+    pipeline's stages)."""
+    sq = sum(torch.sum(torch.square(l.to(_F32))) for l in tree_leaves(tree))
+    return torch.sqrt(sq if sum_over is None else sum_over(sq))
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                         sum_over=None) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Scales the f32 gradients in place (others are first cast to f32)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, sum_over)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     grads = [g if g.dtype == _F32 else g.to(_F32) for g in grads]
     for g in grads:
@@ -129,7 +134,7 @@ def _is_factor_leaf(x: Any) -> bool:
     return isinstance(x, dict) and ("v" in x or "vr" in x)
 
 
-def make_optimizer(cfg: OptimizerConfig):
+def make_optimizer(cfg: OptimizerConfig, *, sum_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """Returns (init_fn, update_fn).
 
     init_fn(params) -> opt_state
@@ -138,7 +143,10 @@ def make_optimizer(cfg: OptimizerConfig):
     ``update_fn`` writes the new parameters into ``params`` and the new
     state into ``opt_state``, clips f32 ``grads`` in place, and returns the
     stats ``{"lr", "grad_norm"}`` as 0-dim f32 tensors.  ``opt_state`` is a
-    tree of tensors, so it checkpoints like any other state.
+    tree of tensors, so it checkpoints like any other state.  Where each
+    rank holds a part of the parameters (a pipeline stage), ``sum_over``
+    sums the gradients' sum of squares over the ranks, so every rank clips
+    by the norm of the whole tree, as the reference's sharded update does.
     """
     schedule = make_schedule(cfg)
     mdt = getattr(torch, cfg.moment_dtype)
@@ -158,7 +166,7 @@ def make_optimizer(cfg: OptimizerConfig):
             return state
 
         def update(grads, state, params, step) -> Dict[str, torch.Tensor]:
-            grads, gnorm = _clip_by_global_norm(tree_leaves(grads), cfg.grad_clip_norm)
+            grads, gnorm = _clip_by_global_norm(tree_leaves(grads), cfg.grad_clip_norm, sum_over)
             lr = schedule(step)
             t = (step + 1).to(_F32)
             bc1 = 1 - torch.pow(cfg.b1, t)
@@ -187,7 +195,7 @@ def make_optimizer(cfg: OptimizerConfig):
             return {"f": tree_map(fac_init, params)}
 
         def update(grads, state, params, step) -> Dict[str, torch.Tensor]:
-            grads, gnorm = _clip_by_global_norm(tree_leaves(grads), cfg.grad_clip_norm)
+            grads, gnorm = _clip_by_global_norm(tree_leaves(grads), cfg.grad_clip_norm, sum_over)
             lr = schedule(step)
             t = (step + 1).to(_F32)
             beta2 = 1.0 - torch.pow(t, -0.8)  # Adafactor's step-dependent decay

@@ -1,6 +1,6 @@
 """The port's checkpointing: the reference's checkpoint tests
-(``tests/test_checkpoint.py``, all but the mesh test, which waits for the
-port's ``dist.sharding``) replayed on the port — bit-exact resume, async
+(``tests/test_checkpoint.py``, all but the mesh test, which
+``tests/test_torch_sharding.py`` replays on gloo ranks) replayed on the port — bit-exact resume, async
 save, a snapshot the caller may update in place, retention, atomicity,
 ``extra`` metadata — and each package restoring the other's checkpoints,
 f32 and bf16 leaves.  Then the reference's failure → rollback → exact

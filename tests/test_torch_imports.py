@@ -98,6 +98,9 @@ def _source_files():
 def test_port_imports_with_jax_and_repro_poisoned():
     mods = _port_modules()
     assert "repro_torch.pipeline.executor" in mods
+    for m in ("repro_torch.dist.pipeline", "repro_torch.dist.sharding", "repro_torch.dist.ranks",
+              "repro_torch.launch.mesh"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -92,3 +92,22 @@ def test_training_phase_runs_on_the_cpu(tmp_path, capsys):
     assert "epochs 2-4 read 0" in text and "profile step 8" in text
     assert "bitwise equal to the uninterrupted run" in text and "ratio 0.2" in text
     assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text
+
+
+def test_distributed_phase_runs_on_the_cpu(tmp_path, capsys):
+    """The distributed phase at reduced size on the CPU: the launcher's
+    pipeline over two gloo ranks, both schedules on two ranks against the
+    sequential stack, and reduced granite's sharded step on a (1, 1) mesh
+    with the elastic restore.  (Peak memory is a card number: not
+    measured here.)"""
+    cut = _reduced("granite-3-2b", dtype="bfloat16", num_layers=2)
+    args = ["--pipeline", "2", "--steps", "12", "--batch", "2", "--seq", "8", "--ckpt-every", "6"]
+    out = chip_smoke.distributed_phase(str(tmp_path), device="cpu", pipeline_args=args,
+                                       cell={"S": 2, "D": 16, "MB": 2, "SEQ": 4}, micros=(2, 6), reps=2, cut=cut)
+    assert out["sharded"] == {"bitwise": True, "max_diff": 0.0, "collectives": 0}
+    assert out["launch"]["last_loss"] < out["launch"]["first_loss"]
+    text = capsys.readouterr().out
+    assert "checkpoint step 12 restored, W (2, 2, 64, 64)" in text
+    assert text.count("(bars held)") == 4 and "stash 2 slots" in text and "stash 6 slots" in text
+    assert "0 collectives; checkpoint restored with shardings= onto the mesh" in text
+    assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text
