@@ -82,18 +82,33 @@
    the card over gloo is tried with the first collective its step needs,
    and whether gloo carried it is printed.
 
+9. Cost analysis, with the model kernels' launch counts set to 0 before
+   it and still 0 after it: (a) ``python -m repro_torch.launch.dryrun`` on
+   five production cells (granite-3-2b train_4k, mixtral-8x22b
+   prefill_32k, zamba2-1.2b decode_32k on the 16x16 mesh, granite-3-2b
+   decode_32k on 2x16x16, and granite-3-2b long_500k, which must give the
+   SKIP record), each in a process of its own on a ``fake`` process group,
+   each cell's three roofline terms under ``HW_H100`` printed; (b) the cost
+   model on granite-3-2b's training cut (2 of 40 layers, batch 2 x 128)
+   against a real step on the card: FLOPs equal those counted on fake
+   tensors, the profiled device busy time at least the roofline bound, the
+   memory tracker's peak within 10% of ``max_memory_allocated``; (c) that
+   cut's sharded step on a (2, 2) mesh of a ``fake`` world of 4, forward
+   and backward; a pinned H2D rate beside ``HW_H100``'s ``host_bw``.
+
 ``four_card_phase`` (not run by ``main``, which needs one card) drives
-parts a and b with a card a rank (NCCL, hops as device tensors); run it
-on four cards with
+parts a and b of the distributed path with a card a rank (NCCL, hops as
+device tensors) and a real (2, 2) sharded step of the training cut
+against the plain step; run it on four cards with
 ``python3 -c "import tempfile, chip_smoke; chip_smoke.four_card_phase(tempfile.mkdtemp())"``.
 
 Prints the card, the build time, the kernel checks and timings, each edit's
 wall time, each tenant's ledger, the service's profile and spans, the serve
 runs' timings and profiles, the training numbers (ms per step, tokens/s,
-peak memory, a profiled step), the distributed numbers (each beside the
-card's name and power limit), a ``{"kernels": [...]}`` line and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises
-(non-zero exit).  Exits non-zero without a CUDA card.
+peak memory, a profiled step), the distributed numbers and the dry-run's
+cells and checks (each beside the card's name and power limit), a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+Any failure raises (non-zero exit).  Exits non-zero without a CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py [--rows N] [--frag N]
 """
@@ -117,10 +132,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core.columnar import Table  # noqa: E402
+from repro_torch.launch.roofline import HW_H100  # noqa: E402
 from repro_torch.pipeline.dsl import Model, Project, model, runtime  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+HBM_BYTES_PER_S = HW_H100["hbm_bw"]  # H100 SXM device memory (NVIDIA data sheet)
+BF16_FLOP_PER_S = HW_H100["peak_flops_bf16"]  # H100 SXM dense bf16 tensor-core peak (data sheet)
 ROWS = 1 << 24
 FRAG = 1 << 16  # rows per fragment; windows stay multiples -> aligned runs
 
@@ -2240,9 +2256,67 @@ def distributed_phase(workdir: str, *, device="cuda", pipeline_args: List[str] =
     return {"launch": launch, "schedules": schedules, "sharded": sharded}
 
 
+def _sharded_cut_rank(rank, cfg, batch: int, seq: int) -> Dict:
+    """One rank of a (data=2, model=2) mesh over the process group: one
+    train step of ``cfg`` under the rules, the state and batch distributed
+    from the same seeded full tensors on every rank, with its collectives
+    counted; and the same step plain, on this rank alone."""
+    from repro_torch.dist.sharding import distribute_tree, use_rules
+    from repro_torch.launch.hlo_cost import CollectiveBytes
+    from repro_torch.launch.mesh import make_mesh, rules_for
+    from repro_torch.models import get_model
+    from repro_torch.train import make_init_state, make_train_step, state_logical_axes
+    from repro_torch.train.state import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank.device
+    mesh = make_mesh((2, 2), ("data", "model"), device=rank.mesh_device)
+    rules = rules_for(cfg, mesh)
+    api, opt = get_model(cfg), _launcher_opt()
+    step = make_train_step(api, opt)
+    plain = make_init_state(api, opt)(torch.Generator(device=dev).manual_seed(0), dev)
+    sharded = distribute_tree(tree_map(lambda t: t.clone(), plain),
+                              state_logical_axes(api.param_logical_axes(), plain.opt), rules)
+    b = _cut_batch(cfg, batch, seq, dev)
+    _sync(dev)
+    t = time.perf_counter()
+    with use_rules(rules), CollectiveBytes() as wire:
+        sharded, m_sharded = step(sharded, distribute_tree(b, {k: ("batch", None) for k in b}, rules))
+        loss = float(m_sharded["loss"].full_tensor())
+    sharded_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plain, m_plain = step(plain, b)
+    plain_loss = float(m_plain["loss"])
+    plain_s = time.perf_counter() - t
+    return {"loss": loss, "plain_loss": plain_loss, "seconds": sharded_s, "plain_seconds": plain_s,
+            "wire_bytes": wire.bytes, "collectives": wire.count, "backend": rank.backend}
+
+
+def sharded_mesh_phase(cfg, workdir: str, device="cuda", batch: int = 2, seq: int = 128) -> Dict:
+    """One train step of ``cfg`` on a real (data=2, model=2) mesh of four
+    ranks, against the plain step: the loss within 1e-2 (bf16 sums in
+    another order).  On the cards each rank has one (NCCL); on the CPU four
+    gloo ranks rehearse it."""
+    from repro_torch.dist.ranks import spawn_ranks
+
+    ranks = spawn_ranks(_sharded_cut_rank, 4, workdir, args=(cfg, batch, seq),
+                        device=torch.device(device).type, timeout_s=600)
+    r0 = ranks[0]
+    diff = max(abs(r["loss"] - r["plain_loss"]) for r in ranks)
+    print(f"  sharded step on a (2, 2) mesh of 4 ranks ({r0['backend']}): {cfg.name} {cfg.dtype}, {_depth(cfg)}, "
+          f"batch {batch} x {seq}: loss {r0['loss']:.6f} against the plain step's {r0['plain_loss']:.6f} (largest "
+          f"difference over the ranks {diff:.3e}, bar 1e-2); {r0['collectives']} collectives, "
+          f"{r0['wire_bytes']:.0f} wire bytes a rank (ring model); {r0['seconds']:.3f} s against "
+          f"{r0['plain_seconds']:.3f} s plain | {_card(device)}", flush=True)
+    if diff > 1e-2:
+        raise AssertionError(f"the (2, 2) sharded step's loss is {diff:.3e} off the plain step's")
+    return {"loss_diff": diff, **r0}
+
+
 def four_card_phase(workdir: str) -> None:
     """Parts a and b of :func:`distributed_phase` with a card a rank
-    (NCCL, hops as device tensors).  Run it with four cards:
+    (NCCL, hops as device tensors), and :func:`sharded_mesh_phase` on
+    granite-3-2b's training cut.  Run it with four cards:
     python3 -c "import tempfile, chip_smoke; chip_smoke.four_card_phase(tempfile.mkdtemp())"
     """
     if torch.cuda.device_count() < 4:
@@ -2251,7 +2325,256 @@ def four_card_phase(workdir: str) -> None:
     t0 = time.perf_counter()
     pipeline_launch_phase(os.path.join(workdir, "pp_launch"), PIPELINE_ARGS)
     pipeline_schedule_phase(os.path.join(workdir, "pp_sched"))
+    cut = model_config(GRANITE, dtype="bfloat16", kernels=False, layers=CUT_LAYERS)
+    sharded_mesh_phase(cut, os.path.join(workdir, "mesh"))
     print(f"four-card phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ----------------------------------------------------------------- dry-run
+DRYRUN_CELLS = (
+    (GRANITE, "train_4k", "single"),  # flattens (batch, seq) under sequence parallelism
+    (MIXTRAL, "prefill_32k", "single"),  # MoE and its rule overrides
+    (ZAMBA2, "decode_32k", "single"),  # hybrid, SSM state
+    (GRANITE, "decode_32k", "multi"),  # the 2x16x16 mesh of a world of 512
+    (GRANITE, "long_500k", "single"),  # full attention at 500k: the SKIP record
+)
+DRYRUN_LIMIT_S = 90.0
+
+
+def _start_dryrun_cells(workdir: str, device, cells) -> List[Tuple[tuple, subprocess.Popen, float, str]]:
+    """Each cell in a ``python -m repro_torch.launch.dryrun`` of its own,
+    all started together (a cell is one core's work for up to a minute)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    out = []
+    for arch, shape, mesh in cells:
+        log = os.path.join(workdir, f"{arch}__{shape}__{mesh}.log")
+        argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                "--mesh", mesh, "--out", workdir, "--device", torch.device(device).type]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(argv, stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        out.append(((arch, shape, mesh), proc, time.time(), log))
+    return out
+
+
+def _finish_dryrun_cells(started, workdir: str, timeout_s: float) -> List[Tuple[dict, float]]:
+    """Waits for each cell and reads its record; a cell's wall runs from its
+    launch to its log's last write (its process's last line)."""
+    records = []
+    for (arch, shape, mesh), proc, t0, log in started:
+        try:
+            proc.wait(timeout=max(1.0, timeout_s - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"dry-run cell {arch} {shape} {mesh} outlived {timeout_s:.0f} s")
+        wall = os.path.getmtime(log) - t0
+        path = os.path.join(workdir, f"{arch}__{shape}__{mesh}.json")
+        if not os.path.exists(path):
+            with open(log) as f:
+                raise AssertionError(f"dry-run cell {arch} {shape} {mesh} wrote no record:\n{f.read()[-3000:]}")
+        with open(path) as f:
+            records.append((json.load(f), wall))
+    return records
+
+
+def h2d_rate(nbytes: int = 1 << 28, reps: int = 5) -> float:
+    """Pinned host -> card copy rate in B/s: median of ``reps`` copies of
+    ``nbytes``, timed with CUDA events."""
+    src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+    del src, dst
+    return nbytes / float(np.median(times))
+
+
+def _cut_batch(cfg, batch: int, seq: int, device) -> Dict[str, torch.Tensor]:
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)).to(device),
+            "labels": torch.from_numpy(toks[:, 1:].astype(np.int32)).to(device),
+            "loss_mask": torch.ones((batch, seq), dtype=torch.float32, device=device)}
+
+
+def cost_model_phase(cfg, device="cuda", batch: int = 2, seq: int = 128) -> Dict:
+    """Part b: the dry-run's cost model and memory tracker held against a
+    real train step of ``cfg`` (kernels off, as in the dry-run).  The FLOPs
+    counted on the card must equal those counted on fake tensors of the
+    same shapes exactly; on the card, the profiled device busy time must be
+    at least the roofline bound of the counted FLOPs and bytes (share
+    <= 1.0), and the tracker's peak, plus what is resident on the card
+    before the step beyond its state and batch (cuBLAS's workspace and the
+    allocator's rounding, which no tracker of the step sees), within 10% of
+    ``max_memory_allocated`` after a warm-up step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.dryrun import cost_step
+    from repro_torch.launch.hlo_cost import CostCounter
+    from repro_torch.launch.roofline import roofline_report
+    from repro_torch.models import get_model
+    from repro_torch.train import make_init_state, make_train_step
+    from repro_torch.train.state import tree_leaves
+
+    api, opt = get_model(cfg), _launcher_opt()
+    step = make_train_step(api, opt)
+    on_card = torch.device(device).type == "cuda"
+    shapes = {k: (v.shape, v.dtype) for k, v in _cut_batch(cfg, batch, seq, "cpu").items()}
+    with FakeTensorMode():
+        fake_state = make_init_state(api, opt)(torch.Generator(device=device), device)
+        fake_batch = {k: torch.empty(shape, dtype=dt, device=device) for k, (shape, dt) in shapes.items()}
+        predicted, memory, _ = cost_step(step, (fake_state, fake_batch), train=True)
+    del fake_state, fake_batch
+    state = make_init_state(api, opt)(torch.Generator(device=device).manual_seed(0), device)
+    b = _cut_batch(cfg, batch, seq, device)
+    step(state, b)  # warm-up: cuBLAS's workspace and the allocator's blocks
+    _sync(device)
+    held = sum(t.numel() * t.element_size() for t in tree_leaves((state, b)))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() - held
+    with CostCounter() as counter:
+        step(state, b)
+        _sync(device)
+    real = counter.result()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    roof = roofline_report(flops_per_device=real.flops, hbm_bytes_per_device=real.bytes_accessed,
+                           collective_bytes_per_device=0.0, n_chips=1)
+    line = (f"  cost model: {cfg.name} {cfg.dtype}, {_depth(cfg)}, batch {batch} x {seq}, kernels off: FLOPs "
+            f"counted on the {torch.device(device).type} {real.flops:.6e}, on fake tensors {predicted.flops:.6e} "
+            f"({'equal' if real.flops == predicted.flops else 'DIFFERENT'}); bytes {real.bytes_accessed:.6e} "
+            f"(fake {predicted.bytes_accessed:.6e}); roofline bound {roof['bound_s'] * 1e3:.4f} ms "
+            f"({roof['dominant']}: compute {roof['compute_s'] * 1e3:.4f} ms, memory {roof['memory_s'] * 1e3:.4f} ms)")
+    out = {"flops": real.flops, "flops_fake": predicted.flops, "bytes": real.bytes_accessed,
+           "bound_s": roof["bound_s"], "predicted_peak": memory["peak_bytes"]}
+    if not on_card:
+        print(line + f"; device busy time and peak memory not measured | {_card(device)}")
+        if real.flops != predicted.flops:
+            raise AssertionError("the FLOPs counted on real and fake tensors differ")
+        return out
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy = sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0) / 1e6
+    share = roof["bound_s"] / busy if busy else float("nan")
+    want = memory["peak_bytes"] + resident
+    gap = abs(want - peak) / peak
+    print(line + f"; device busy {busy * 1e3:.4f} ms (wall {wall * 1e3:.4f} ms), roofline share {share:.4f}; peak "
+          f"memory: tracker {memory['peak_bytes']} B + resident beyond state and batch {resident} B (cuBLAS "
+          f"workspace, allocator rounding) = {want} B against max_memory_allocated {peak} B ({gap * 100:.2f}% "
+          f"off) | {_card(device)}")
+    out.update(busy_s=busy, share=share, peak=peak, resident=resident, gap=gap)
+    if real.flops != predicted.flops:
+        raise AssertionError("the FLOPs counted on the card and on fake tensors differ")
+    if not busy or share > 1.0:
+        raise AssertionError(f"device busy {busy} s under the roofline bound {roof['bound_s']} s")
+    if gap > 0.10:
+        raise AssertionError(f"the tracker's peak is {gap * 100:.1f}% off max_memory_allocated")
+    del state, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def fake_mesh_step_phase(cfg, device="cuda", batch: int = 2, seq: int = 128) -> Dict:
+    """Part c: one train step of ``cfg`` under the rules of a (data=2,
+    model=2) mesh on a ``fake`` process group of world 4 (its collectives
+    move nothing, so the numbers mean nothing): forward and backward must
+    run on this torch without raising.  Starts and ends its own process
+    group."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.dist.sharding import distribute_tree, use_rules
+    from repro_torch.launch.mesh import describe_mesh, make_mesh, rules_for
+    from repro_torch.models import get_model
+    from repro_torch.train import make_init_state, make_train_step, state_logical_axes
+
+    kind = torch.device(device).type
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_mesh((2, 2), ("data", "model"), device=kind)
+        rules = rules_for(cfg, mesh)
+        api, opt = get_model(cfg), _launcher_opt()
+        state = make_init_state(api, opt)(torch.Generator(device=device).manual_seed(0), device)
+        state = distribute_tree(state, state_logical_axes(api.param_logical_axes(), state.opt), rules)
+        b = _cut_batch(cfg, batch, seq, device)
+        t = time.perf_counter()
+        with use_rules(rules):
+            db = distribute_tree(b, {k: ("batch", None) for k in b}, rules)
+            state, metrics = make_train_step(api, opt)(state, db)
+            _sync(device)
+        seconds = time.perf_counter() - t
+        placements = [str(p) for p in state.params["embed"].placements]
+        del state
+    finally:
+        dist.destroy_process_group()
+    print(f"  sharded step on a fake world of 4: {cfg.name} {cfg.dtype}, {_depth(cfg)}, batch {batch} x {seq}, "
+          f"mesh {describe_mesh(mesh)}: forward and backward ran in {seconds:.3f} s (the fake group moves "
+          f"nothing, so its values mean nothing; embed placed {placements}) | torch {torch.__version__} | "
+          f"{_card(device)}")
+    return {"seconds": seconds}
+
+
+def dryrun_phase(workdir: str, device="cuda", cells=DRYRUN_CELLS, cut=None) -> Dict:
+    """The cost analysis: (a) ``python -m repro_torch.launch.dryrun`` on
+    ``cells``, each in a process of its own, started first and read last
+    (each must end ``ok``, or ``SKIP`` where the coverage rule says so),
+    with each cell's roofline terms under ``HW_H100``; (b)
+    :func:`cost_model_phase` and (c) :func:`fake_mesh_step_phase` on ``cut``
+    (by default granite-3-2b at full width, depth cut to ``CUT_LAYERS``,
+    bf16, the training phase's cut) while the cells run.  The model
+    kernels' launch counts are set to 0 before the phase and must still be
+    0 after it; on the card the phase must end within ``DRYRUN_LIMIT_S``."""
+    from repro_torch.launch.roofline import HW_H100
+    from repro_torch.models import cell_is_runnable, get_config
+
+    cut = cut or model_config(GRANITE, dtype="bfloat16", kernels=False, layers=CUT_LAYERS)
+    os.makedirs(workdir, exist_ok=True)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    card = _card(device)
+    print(f"dry-run phase | {card}", flush=True)
+    started = _start_dryrun_cells(workdir, device, cells)
+    if torch.device(device).type == "cuda":
+        rate = h2d_rate()
+        print(f"  pinned H2D copy: {rate / 1e9:.2f} GB/s measured, HW_H100 host_bw {HW_H100['host_bw'] / 1e9:.0f} "
+              f"GB/s (PCIe Gen5 x16) | {card}")
+    cost = cost_model_phase(cut, device)
+    fake_mesh_step_phase(cut, device)
+    records = _finish_dryrun_cells(started, workdir, timeout_s=DRYRUN_LIMIT_S * 2)
+    bad = []
+    for rec, wall in records:
+        runnable, _ = cell_is_runnable(get_config(rec["arch"]), rec["shape"])
+        status = rec["status"]
+        if not (status == "ok" if runnable else status.startswith("SKIP")):
+            bad.append(f"{rec['arch']} {rec['shape']} {rec['mesh']}: {status}")
+        roof = rec.get("roofline")
+        terms = ("compute {compute_s:.6f} s, memory {memory_s:.6f} s, collective {collective_s:.6f} s, dominant "
+                 "{dominant}".format(**roof) if roof else "no roofline")
+        mem = rec.get("memory", {})
+        print(f"  dry-run {rec['arch']} {rec['shape']} {rec['mesh']}: {status}; {terms}; peak "
+              f"{mem.get('peak_bytes', 'n/a')} B a device; wall {wall:.1f} s (HW_H100) | {card}", flush=True)
+    launches = _launch_counts()
+    seconds = time.perf_counter() - t0
+    print(f"dry-run phase: {seconds:.1f} s, kernel launches {launches}", flush=True)
+    if bad:
+        raise AssertionError("dry-run cells failed: " + "; ".join(bad))
+    if any(launches.values()):
+        raise AssertionError(f"the dry-run phase launched model kernels: {launches}")
+    if torch.device(device).type == "cuda" and seconds > DRYRUN_LIMIT_S:
+        raise AssertionError(f"the dry-run phase took {seconds:.1f} s > {DRYRUN_LIMIT_S:.0f} s")
+    return {"cells": [r for r, _ in records], "cost": cost, "seconds": seconds}
 
 
 # -------------------------------------------------------------------- main
@@ -2330,6 +2653,8 @@ def main(argv=None) -> int:
         training_phase(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         distributed_phase(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        dryrun_phase(tmp)
     attention["launches"] = sum(r["flash_attention"] for r in runs.values())
     attention["launches_by_run"] = {name: r["flash_attention"] for name, r in runs.items()}
     scan["launches"] = runs[ZAMBA2]["mamba2_ssd"]

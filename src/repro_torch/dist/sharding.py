@@ -20,8 +20,8 @@ reference's:
    (6 heads on a 4-way axis: 2, 2, 2, 0 a rank), as GSPMD pads the last
    shard.  DTensor cannot propagate every op over an uneven shard (it
    refuses to flatten or unflatten one, ``aten.view``), so the model's
-   products go through :func:`einsum`, which makes its operands whole over
-   a mesh dim that some dim of the product does not divide.
+   products go through :func:`einsum`, which runs on the local shards, and
+   its reshapes through :func:`reshape`, which makes such a dim whole.
 3. Constraints onto axes of size 1 (or axes not in the mesh) are no-ops and
    are dropped.
 
@@ -46,7 +46,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 __all__ = [
     "Axis",
@@ -57,9 +57,12 @@ __all__ = [
     "einsum",
     "is_dtensor",
     "map_axes",
+    "per_shard",
+    "reshape",
     "shard",
     "tree_pspecs",
     "use_rules",
+    "whole_dims",
 ]
 
 # A physical assignment for one logical axis: one mesh axis, several (their
@@ -108,31 +111,110 @@ def is_dtensor(x: Any) -> bool:
 
 
 def einsum(equation: str, *operands):
-    """``torch.einsum``; on DTensor operands, hazard rule 2's uneven shards
-    are kept out of it.  einsum flattens the dims it batches and contracts
-    and unflattens its output through ``aten.view``, which DTensor refuses
-    over an uneven shard, and DTensor may shard a flattened dim whose
-    leading dim does not divide.  So over each mesh dim that some dim of
-    the product (longer than 1) does not divide, the operands are first
-    made whole (replicated); the output then carries no shard there, and
-    the next :func:`shard` places it.  On plain tensors it is
-    ``torch.einsum`` itself."""
+    """``torch.einsum``; on DTensor operands, a product that the port lays
+    out itself, so that DTensor is asked to flatten nothing.
+
+    ``torch.einsum`` flattens the dims it batches and contracts through
+    ``aten.view``, and DTensor refuses such a view when a sharded dim does
+    not lead its group (torch 2.11: "Attempted to flatten multiple
+    dimensions, with dimension 1 being sharded") or is sharded unevenly.
+    Sequence parallelism flattens ``(batch, seq)`` and attention ``(batch,
+    heads)``, both sharded.  So the operands are contracted in pairs, left
+    to right, each pair by :func:`_local_product`: the operands are
+    redistributed so that every mesh dim shards the product one way, and
+    ``torch.einsum`` runs on the local shards, uneven ones (hazard rule 2)
+    included: both operands of a label shared by them are cut alike.  On
+    plain tensors it is ``torch.einsum`` itself."""
     meshes = [t.device_mesh for t in operands if isinstance(t, DTensor)]
     if not meshes:
         return torch.einsum(equation, *operands)
     mesh = meshes[0]
-    sizes = {label: n for spec, t in zip(equation.split("->")[0].split(","), operands)
-             for label, n in zip(spec.strip(), t.shape)}
-    uneven = [i for i in range(mesh.ndim)
-              if mesh.size(i) > 1 and any(n > 1 and n % mesh.size(i) for n in sizes.values())]
+    ins, out = equation.replace(" ", "").split("->")
+    specs = ins.split(",")
+    operands = [t if is_dtensor(t) else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                for t in operands]
+    y, y_spec = operands[0], specs[0]
+    for i in range(1, len(operands)):
+        later = set("".join(specs[i + 1:]) + out)
+        keep = out if i == len(operands) - 1 else "".join(
+            label for label in dict.fromkeys(y_spec + specs[i]) if label in later)
+        y = _local_product(y_spec, specs[i], keep, y, operands[i])
+        y_spec = keep
+    if len(operands) == 1:
+        return torch.einsum(equation, y)
+    return y
 
-    def whole(t):
-        if not is_dtensor(t) or not uneven:
-            return t
-        placements = [Replicate() if i in uneven else p for i, p in enumerate(t.placements)]
-        return t if placements == list(t.placements) else t.redistribute(mesh, placements)
 
-    return torch.einsum(equation, *(whole(t) for t in operands))
+def _local_product(sa: str, sb: str, so: str, a, b):
+    """``einsum(f"{sa},{sb}->{so}", a, b)`` of two DTensors on one mesh, run
+    on their local shards.  Mesh dim by mesh dim: a label both operands
+    shard there stays sharded (batch labels shard the output, contracted
+    ones leave it partial); a label one operand shards is sharded in the
+    other too when the other has it (a local chunk, no transfer), and
+    shards the output when it does not (the other stays whole); two
+    different labels cannot both stay, so one operand is made whole there:
+    the one whose label the output lacks, else the smaller.  Each operand
+    goes through ``redistribute`` (even to its own placements), whose
+    backward brings its gradient back to the placements it came with, so
+    no partial gradient leaves the product: the gradient of an operand
+    kept whole beside a sharded one is partial inside it
+    (``to_local(grad_placements=)``) and summed there."""
+    mesh = a.device_mesh
+    pa, pb = list(a.placements), list(b.placements)
+    # a partial or strided placement is made whole
+    for p in (pa, pb):
+        for m, q in enumerate(p):
+            if type(q) is not Shard and not q.is_replicate():
+                p[m] = Replicate()
+    out: List[Any] = [Replicate()] * mesh.ndim
+    for m in range(mesh.ndim):
+        la, lb = _label_on(pa, sa, m), _label_on(pb, sb, m)
+        if la is not None and lb is not None and la != lb:
+            # keep the shard that shards the output (a contracted one would
+            # leave the output partial, whole-sized on every device), else
+            # the larger operand's
+            if (la in so, _shard_bytes(a, pa)) < (lb in so, _shard_bytes(b, pb)):
+                pa[m], la = Replicate(), None
+            else:
+                pb[m], lb = Replicate(), None
+        label = la if la is not None else lb
+        if label is None:
+            continue
+        if label in sa and label in sb:  # batch or contracted: both shard it
+            pa[m], pb[m] = Shard(sa.index(label)), Shard(sb.index(label))
+        out[m] = Shard(so.index(label)) if label in so else Partial()
+    ga = [Partial() if q.is_replicate() and type(r) is Shard else q for q, r in zip(pa, pb)]
+    gb = [Partial() if q.is_replicate() and type(r) is Shard else q for q, r in zip(pb, pa)]
+    la_ = a.redistribute(mesh, pa).to_local(grad_placements=ga)
+    lb_ = b.redistribute(mesh, pb).to_local(grad_placements=gb)
+    y = torch.einsum(f"{sa},{sb}->{so}", la_, lb_)
+    sizes = dict(zip(sa, a.shape)) | dict(zip(sb, b.shape))
+    shape = torch.Size(sizes[label] for label in so)
+    return DTensor.from_local(y, mesh, out, run_check=False, shape=shape, stride=_dense_stride(y, shape))
+
+
+def _label_on(placements, spec: str, m: int) -> Optional[str]:
+    """The label of the dim that mesh dim ``m`` shards, or None."""
+    p = placements[m]
+    return spec[p.dim] if type(p) is Shard else None
+
+
+def _shard_bytes(t, placements) -> float:
+    n = 1
+    for m, p in enumerate(placements):
+        n *= t.device_mesh.size(m) if type(p) is Shard else 1
+    return t.numel() * t.element_size() / n
+
+
+def _dense_stride(local: torch.Tensor, shape: torch.Size) -> Tuple[int, ...]:
+    """The strides of a dense tensor of the global ``shape`` laid out in
+    ``local``'s dim order (innermost first by stride)."""
+    order = sorted(range(local.dim()), key=lambda d: (local.stride(d), -d))
+    stride, n = [0] * local.dim(), 1
+    for d in order:
+        stride[d] = n
+        n *= shape[d]
+    return tuple(stride)
 
 
 @dataclass
@@ -266,9 +348,7 @@ class use_rules:
     def __enter__(self) -> Optional[MeshRules]:
         stack = contextlib.ExitStack()
         if self.rules is not None:
-            from torch.distributed.tensor.experimental import implicit_replication
-
-            stack.enter_context(implicit_replication())
+            stack.enter_context(_implicit_replication())
         _ACTIVE.stack.append(self.rules)
         self._exits.append(stack)
         return self.rules
@@ -279,6 +359,22 @@ class use_rules:
         return False
 
 
+@contextlib.contextmanager
+def _implicit_replication():
+    """DTensor's ``implicit_replication``, restoring the setting it found.
+    torch's resets it to off, which inside a backward (that autograd runs
+    with the caller's setting) would switch it off for the rest of the node
+    whose saved tensors a rematerialisation recomputes under
+    :class:`use_rules` (``models.layers.remat``)."""
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
 # ----------------------------------------------------------------- operators
 def shard(x, logical_axes: Sequence[Optional[str]]):
     """Constrain ``x`` to the active rules' sharding; identity if none."""
@@ -286,6 +382,84 @@ def shard(x, logical_axes: Sequence[Optional[str]]):
     if rules is None:
         return x
     return rules.constrain(x, logical_axes)
+
+
+def whole_dims(x, dims: Sequence[int]):
+    """``x`` with no mesh dim sharding any of its tensor ``dims``; the
+    identity on a plain tensor.  Always a ``redistribute`` on a DTensor,
+    even to its own placements, so the gradient comes back to these
+    placements too before it reaches the op that needs them whole."""
+    if not is_dtensor(x):
+        return x
+    dims = {d % x.dim() for d in dims}
+    placements = [Replicate() if type(p) is not Replicate and getattr(p, "dim", None) in dims else p
+                  for p in x.placements]
+    return x.redistribute(x.device_mesh, placements)
+
+
+def reshape(x, *shape):
+    """``x.reshape(*shape)``; on a DTensor, every dim the view could not
+    keep sharded is made whole first (:func:`whole_dims`): a sharded dim
+    that does not lead the group it is flattened into (torch 2.11 refuses
+    it: "Attempted to flatten multiple dimensions, with dimension 1 being
+    sharded"), a leading one sharded unevenly, and one split into parts
+    whose first the mesh does not divide ("Cannot unflatten unevenly
+    sharded tensor").  A partial sum is summed first (DTensor would turn it
+    into a shard of its own choosing to copy a strided tensor).  The result
+    goes through ``redistribute`` to its own placements, so its gradient
+    reaches the view's backward placed as the forward left it, and the
+    inverse view is one DTensor accepts too."""
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    from torch.distributed.tensor._ops._view_ops import Flatten, InputDim, Split, view_groups
+
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list, torch.Size)):
+        shape = tuple(shape[0])
+    shape = list(shape)
+    if -1 in shape:
+        shape[shape.index(-1)] = x.numel() // -int(np.prod(shape))
+    mesh = x.device_mesh
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    ways: Dict[int, int] = {}  # tensor dim -> how many ways the mesh shards it
+    for m, p in enumerate(x.placements):
+        if getattr(p, "dim", None) is not None and not p.is_replicate():
+            ways[p.dim] = ways.get(p.dim, 1) * mesh.size(m)
+    bad: set = set()
+
+    def lead(cmd) -> Optional[int]:
+        if isinstance(cmd, InputDim):
+            return cmd.input_dim
+        if isinstance(cmd, Flatten):
+            first, *rest = [d.input_dim for d in cmd.input_dims]
+            bad.update(d for d in rest if d in ways)
+            if first in ways and x.shape[first] % ways[first]:
+                bad.add(first)
+            return first
+        if isinstance(cmd, Split):
+            d = lead(cmd.input_dim)
+            if d is not None and cmd.split_id == 0 and d in ways and cmd.group_shape[0] % ways[d]:
+                bad.add(d)
+            return d
+        return None
+
+    for cmd in view_groups(list(x.shape), shape):
+        lead(cmd)
+    y = whole_dims(x, sorted(bad)).reshape(shape)
+    return y.redistribute(mesh, y.placements)
+
+
+def per_shard(fn, x, dims: Sequence[int]):
+    """``fn(x)`` for an ``fn`` that keeps ``x``'s shape and works along
+    ``dims`` only (a cumulative sum).  On a DTensor it runs on the local
+    shard, with ``dims`` made whole first, and its backward runs there too:
+    DTensor has no strategy for some ops that such backwards use (torch
+    2.11: ``aten.flip``, in ``cumsum``'s)."""
+    if not is_dtensor(x):
+        return fn(x)
+    x = whole_dims(x, dims)
+    y = fn(x.to_local())
+    return DTensor.from_local(y, x.device_mesh, x.placements, run_check=False, shape=x.shape, stride=x.stride())
 
 
 def _is_axes(node: Any) -> bool:

@@ -26,7 +26,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.dist.sharding import shard
 from repro_torch.models import mamba as _mamba
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import attention_decode, attention_train, mlp_apply, rms_norm
+from repro_torch.models.layers import attention_decode, attention_train, mlp_apply, rms_norm, write_positions
 
 __all__ = [
     "init_params",
@@ -200,8 +200,7 @@ def decode_step(
     pos = cache["pos"]  # (B,)
     T = cache["k"].shape[2]
     slot = torch.clamp(pos, max=T - 1).long()  # (B,)
-    kv_pos = cache["kv_pos"].clone()
-    kv_pos[torch.arange(B, device=x.device), slot] = pos
+    kv_pos = write_positions(cache["kv_pos"], slot, pos)
     valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
     sp = params["shared_attn"]
     layers = _mamba.unstack(params["layers"])

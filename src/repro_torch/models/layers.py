@@ -23,6 +23,7 @@ token-mean loss.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Callable, Dict, Tuple
@@ -30,7 +31,7 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import einsum, is_dtensor, shard
+from repro_torch.dist.sharding import current_rules, einsum, is_dtensor, reshape, shard, use_rules
 from repro_torch.models.config import ArchConfig
 
 __all__ = [
@@ -39,6 +40,7 @@ __all__ = [
     "apply_rope",
     "attention_train",
     "attention_decode",
+    "write_positions",
     "mlp_apply",
     "moe_apply",
     "cross_entropy",
@@ -208,9 +210,9 @@ def _blocked_local_attention(
     if S % W:
         raise ValueError(f"S {S} is not a multiple of the window {W}")
     nb = S // W
-    qb = q.reshape(B, nb, W, H, hd)
-    kb = k.reshape(B, nb, W, H, hd)
-    vb = v.reshape(B, nb, W, H, hd)
+    qb = reshape(q, B, nb, W, H, hd)
+    kb = reshape(k, B, nb, W, H, hd)
+    vb = reshape(v, B, nb, W, H, hd)
     # previous block (block -1 is zeros, fully masked)
     k_prev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
     v_prev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
@@ -227,7 +229,7 @@ def _blocked_local_attention(
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     del scores
     out = einsum("bnhqt,bnthk->bnqhk", probs, vv)
-    return out.reshape(B, S, H, hd)
+    return reshape(out, B, S, H, hd)
 
 
 def attention_decode(
@@ -279,12 +281,27 @@ def attention_decode(
 
     # grouped-query attention over the cache (no KV repeat: q -> (B,1,KV,G,hd))
     G = H // KV
-    qg = q.reshape(B, 1, KV, G, hd)
+    qg = reshape(q, B, 1, KV, G, hd)
     scores = einsum("bskgh,btkh->bkgst", qg.float(), k_cache.float()) * (hd**-0.5)
     scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = einsum("bkgst,btkh->bskgh", probs, v_cache).reshape(B, 1, H, hd)
+    out = reshape(einsum("bkgst,btkh->bskgh", probs, v_cache), B, 1, H, hd)
     return einsum("bshk,hkd->bsd", out, wo), k_cache, v_cache
+
+
+def write_positions(kv_pos: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """A copy of ``kv_pos`` (B, T) with ``pos[b]`` in slot ``slot[b]`` of
+    each row.  On a DTensor, whose batch the rules shard, DTensor has no
+    strategy for the ``index_put_`` ("in-place operations that require
+    placement changes are not supported"): the write goes through a one-hot
+    of the slots, as the cache's does."""
+    if is_dtensor(kv_pos):
+        T = kv_pos.shape[1]
+        hit = torch.arange(T, device=slot.device)[None, :] == slot[:, None]
+        return torch.where(hit, pos[:, None].to(kv_pos.dtype), kv_pos)
+    out = kv_pos.clone()
+    out[torch.arange(kv_pos.shape[0], device=kv_pos.device), slot] = pos
+    return out
 
 
 # ------------------------------------------------------------------- MLPs
@@ -343,7 +360,7 @@ def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> t
         g_size -= 1
     G = T // g_size
     C = max(int(math.ceil(g_size * K / E * cfg.capacity_factor)), 1)
-    xg = x.reshape(G, g_size, D)
+    xg = reshape(x, G, g_size, D)
 
     logits = einsum("gtd,de->gte", xg.float(), w["router"].float())  # f32
     gate_vals, expert_ids = torch.topk(logits, K, dim=-1)  # (G, Tg, K), descending
@@ -353,8 +370,8 @@ def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> t
     onehot = F.one_hot(expert_ids, E).float()
     # position of each (token, k) inside its expert's per-group queue:
     # cumulative count over the flattened (Tg·K) routing slots
-    flat = onehot.reshape(G, g_size * K, E)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(G, g_size, K, E)  # before self
+    flat = reshape(onehot, G, g_size * K, E)
+    pos = reshape(torch.cumsum(flat, dim=1) - flat, G, g_size, K, E)  # before self
     pos_in_expert = (pos * onehot).sum(dim=-1)  # (G, Tg, K)
     keep = pos_in_expert < C
     gates = gates * keep  # drop overflow; renormalise below
@@ -369,13 +386,13 @@ def moe_apply(cfg: ArchConfig, x: torch.Tensor, w: Dict[str, torch.Tensor]) -> t
     combine = einsum("gtk,gtke,gtkc->gtec", gates, onehot, cap_oh)
 
     expert_in = einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
-    expert_in = shard(expert_in.reshape(E, G * C, D), ("act_experts", "batch", None))
-    expert_out = _expert_ffn(cfg, expert_in, w).reshape(E, G, C, D)
+    expert_in = shard(reshape(expert_in, E, G * C, D), ("act_experts", "batch", None))
+    expert_out = reshape(_expert_ffn(cfg, expert_in, w), E, G, C, D)
     out = einsum("gtec,egcd->gtd", combine.to(x.dtype), expert_out)
 
     if cfg.moe_shared_expert:
         out = out + mlp_apply(cfg, xg, w["shared"])
-    return out.reshape(B, S, D)
+    return reshape(out, B, S, D)
 
 
 # ------------------------------------------------------------------- loss
@@ -428,20 +445,36 @@ def remat(mode: str, fn: Callable) -> Callable:
     ``"none"`` keeps every activation, ``"full"`` keeps only ``fn``'s inputs
     and recomputes the rest in the backward pass, ``"dots"`` keeps the
     outputs of the products without batch dimensions as well.  With grad
-    mode off (serving) ``fn`` runs as it is."""
+    mode off (serving) ``fn`` runs as it is.  The recomputation runs under
+    the sharding rules the forward ran under: on the card autograd runs the
+    backward in a worker thread of its own, where the (thread-local) active
+    rules are not, and a recomputation without them would place its
+    tensors otherwise than the forward did."""
     if mode == "none":
         return fn
     if mode not in ("full", "dots"):
         raise ValueError(f"unknown remat policy {mode!r}")
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-    kw = {}
-    if mode == "dots":
-        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    def contexts(rules):
+        if mode == "dots":
+            forward, recompute = create_selective_checkpoint_contexts(_save_dots)
+        else:
+            forward, recompute = contextlib.nullcontext(), contextlib.nullcontext()
+        return forward, _under(recompute, use_rules(rules))
 
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(contexts, current_rules()))
 
     return run
+
+
+@contextlib.contextmanager
+def _under(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield

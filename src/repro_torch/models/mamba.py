@@ -121,16 +121,18 @@ def lookup(table, tokens):
     strategy, a masked partial of the rows, which fails twice: with the
     batch sharded too its mask takes the tokens' local shape, and without
     sequence parallelism its backward cannot turn the gradient's partial
-    sum into the masked one.  So a table that is trained is made whole
-    over the vocab first (a gather of the table, as FSDP gathers every
-    weight), and one that is not (decode) reads replicated tokens, which
-    cost far less than the table."""
+    sum into the masked one.  So a table that is trained, or whose rows
+    looked up outweigh it (prefill), is made whole first (a gather of the
+    table, as FSDP gathers every weight; a table still sharded over its
+    width would make DTensor gather the tokens and look up the whole
+    batch on every device), and one that is not (decode) reads replicated
+    tokens, which cost far less than the table."""
     if is_dtensor(table):
-        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor import Replicate
 
-        if torch.is_grad_enabled() and table.requires_grad:
-            whole = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p for p in table.placements]
-            table = table.redistribute(table.device_mesh, whole)
+        rows_bytes = tokens.numel() * table.shape[1] * table.element_size()
+        if (torch.is_grad_enabled() and table.requires_grad) or rows_bytes > table.numel() * table.element_size():
+            table = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
         elif is_dtensor(tokens):
             tokens = tokens.redistribute(tokens.device_mesh, [Replicate()] * tokens.device_mesh.ndim)
     return F.embedding(tokens, table)
@@ -163,6 +165,15 @@ def run_layers(cfg: ArchConfig, x: torch.Tensor, layers: Sequence[Dict[str, Any]
     return x, ssm, conv
 
 
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` is first placed as ``dst`` is
+    (DTensor refuses an in-place copy that would change ``dst``'s
+    placements)."""
+    if is_dtensor(dst) and tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
 def decode_layers(cfg: ArchConfig, x: torch.Tensor, layers: Sequence[Dict[str, Any]], cache, start: int):
     """Mamba2 layers ``start, start + 1, …`` (per-layer trees) for one token
     per sequence; their states in ``cache["ssm"]`` and ``cache["conv"]`` are
@@ -170,8 +181,8 @@ def decode_layers(cfg: ArchConfig, x: torch.Tensor, layers: Sequence[Dict[str, A
     for i, lp in enumerate(layers, start):
         h = rms_norm(x, lp["ln"], cfg.norm_eps)
         out, ssm_state, conv_state = mamba2_decode(cfg, h, lp, cache["ssm"][i], cache["conv"][i])
-        cache["ssm"][i].copy_(ssm_state)
-        cache["conv"][i].copy_(conv_state)
+        _write(cache["ssm"][i], ssm_state)
+        _write(cache["conv"][i], conv_state)
         x = x + out
     return x
 

@@ -3,20 +3,32 @@
 ``get_model(cfg)`` returns a uniform functional API regardless of family:
 ``transformer`` serves the dense, MoE, audio and VLM families, ``mamba``
 the ``ssm`` family and ``hybrid`` the ``hybrid`` family; the API carries
-the logical sharding axes of the parameters and of the decode cache.  The
-reference's ``input_specs`` and ``cell_is_runnable`` (dry-run shape
-stand-ins) come with the cost-analysis slice of ``launch/``.
+the logical sharding axes of the parameters and of the decode cache.
+``input_specs`` gives one (arch × shape) cell's inputs as tensors on the
+``meta`` device (the reference's ``ShapeDtypeStruct`` stand-ins; nothing
+is allocated) and ``cell_is_runnable`` the 40-cell coverage rule, both for
+the dry-run (``launch.dryrun``).
 """
 
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable, Dict, Tuple, Union
 
-from repro_torch.models.config import ArchConfig
+import torch
 
-__all__ = ["ModelAPI", "get_model", "get_config", "list_archs", "ARCH_IDS"]
+from repro_torch.models.config import SHAPES, ArchConfig, ShapeSpec
+
+__all__ = [
+    "ModelAPI",
+    "get_model",
+    "get_config",
+    "list_archs",
+    "input_specs",
+    "cell_is_runnable",
+    "ARCH_IDS",
+]
 
 ARCH_IDS = [
     "musicgen-medium",
@@ -88,3 +100,48 @@ def get_config(arch_id: str) -> ArchConfig:
 
 def list_archs():
     return list(ARCH_IDS)
+
+
+# --------------------------------------------------------------- input specs
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: Union[ShapeSpec, str]) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for one (arch × shape) cell.
+
+    train  : tokens/labels (B,S) int32, loss_mask (B,S) f32 [+ prefix embeds]
+    prefill: tokens (B,S) int32 [+ prefix embeds]
+    decode : tokens (B,1) int32 + a full KV/state cache at seq_len context
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B, S = shape.global_batch, shape.seq_len
+    dtype = getattr(torch, cfg.dtype)
+    specs: Dict[str, Any] = {}
+    if shape.kind == "train":
+        specs["tokens"] = _meta((B, S), torch.int32)
+        specs["labels"] = _meta((B, S), torch.int32)
+        specs["loss_mask"] = _meta((B, S), torch.float32)
+        if cfg.frontend != "none":
+            specs["prefix_embeds"] = _meta((B, cfg.prefix_len, cfg.d_model), dtype)
+        return specs
+    if shape.kind == "prefill":
+        specs["tokens"] = _meta((B, S), torch.int32)
+        if cfg.frontend != "none":
+            specs["prefix_embeds"] = _meta((B, cfg.prefix_len, cfg.d_model), dtype)
+        return specs
+    if shape.kind == "decode":
+        specs["tokens"] = _meta((B, 1), torch.int32)
+        specs["cache"] = _family_module(cfg.family).init_decode_cache(cfg, B, S, device="meta")
+        return specs
+    raise ValueError(f"unknown shape kind {shape.kind}")
+
+
+def cell_is_runnable(cfg: ArchConfig, shape: Union[ShapeSpec, str]) -> Tuple[bool, str]:
+    """The 40-cell coverage rule: ``long_500k`` needs sub-quadratic attention."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "SKIP(full-attention @ 500k context)"
+    return True, ""

@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import einsum, shard
+from repro_torch.dist.sharding import einsum, per_shard, reshape, shard, whole_dims
 from repro_torch.models.config import ArchConfig
 
 __all__ = [
@@ -46,7 +46,13 @@ def ssd_chunked(
     chunk: int,
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N) initial state
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,S,H,P) in xh's dtype, final_state (B,H,P,N) f32)."""
+    """Returns (y (B,S,H,P) in xh's dtype, final_state (B,H,P,N) f32).
+
+    On DTensors the sequence is made whole once, before it is split into
+    chunks: the loop over chunks reads one chunk at a time, and DTensor
+    cannot split a sharded sequence into a chunk count the mesh dim does
+    not divide ("Cannot unflatten unevenly sharded tensor")."""
+    xh, dt, Bm, Cm = (whole_dims(t, [1]) for t in (xh, dt, Bm, Cm))
     B_, S, H, P = xh.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -61,13 +67,13 @@ def ssd_chunked(
     nc = S // Q
     f32 = torch.float32
 
-    xc = xh.reshape(B_, nc, Q, H, P).to(f32)
-    dtc = dt.reshape(B_, nc, Q, H).to(f32)
-    Bc = Bm.reshape(B_, nc, Q, N).to(f32)
-    Cc = Cm.reshape(B_, nc, Q, N).to(f32)
+    xc = reshape(xh, B_, nc, Q, H, P).to(f32)
+    dtc = reshape(dt, B_, nc, Q, H).to(f32)
+    Bc = reshape(Bm, B_, nc, Q, N).to(f32)
+    Cc = reshape(Cm, B_, nc, Q, N).to(f32)
 
     dA = dtc * A.to(f32)  # (B,nc,Q,H), negative
-    dA_cs = torch.cumsum(dA, dim=2)  # inclusive within-chunk cumsum
+    dA_cs = per_shard(lambda t: torch.cumsum(t, dim=2), dA, [2])  # inclusive within-chunk cumsum
 
     # ---- intra-chunk: (C·Bᵀ ⊙ L) @ (dt·x)
     scores = einsum("bcqn,bctn->bcqt", Cc, Bc)
@@ -93,7 +99,7 @@ def ssd_chunked(
 
     # ---- inter-chunk output: exp(dA_cs[q]) · C_q · h_prev
     y_inter = einsum("bcqn,bchpn,bcqh->bcqhp", Cc, h_prev, torch.exp(dA_cs))
-    y = (y_intra + y_inter).reshape(B_, S, H, P)[:, :S_real]
+    y = reshape(y_intra + y_inter, B_, S, H, P)[:, :S_real]
     return y.to(xh.dtype), h
 
 
@@ -116,13 +122,17 @@ def ssd_decode_step(
 
 # ----------------------------------------------------------- conv + block
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along seq.  x: (B,S,C), w: (K,C), b: (C,)."""
+    """Depthwise causal conv along seq.  x: (B,S,C), w: (K,C), b: (C,).
+    On a DTensor the sequence is made whole and each shift runs on the
+    local shard: torch 2.11's DTensor fails on the shift's pad
+    (``constant_pad_nd``: an ``IndexError`` in its strategy)."""
+    x = whole_dims(x, [1])
     K = w.shape[0]
     S = x.shape[1]
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(K):  # K is tiny (4): unrolled shifts
         shift = K - 1 - i
-        xi = F.pad(x, (0, 0, shift, 0))[:, :S, :]
+        xi = per_shard(lambda t: F.pad(t, (0, 0, shift, 0))[:, :S, :], x, [1])
         out = out + xi.float() * w[i].float()
     return (out + b.float()).to(x.dtype)
 
@@ -179,7 +189,7 @@ def mamba2_forward(
     z, xbc_raw, dt_raw = _split_zxbcdt(cfg, zxbcdt)
     xbc = F.silu(causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
     xs, Bm, Cm = xbc[..., :d_in], xbc[..., d_in : d_in + N], xbc[..., d_in + N :]
-    xh = shard(xs.reshape(B, S, H, P), ("batch", None, "ssm_heads", None))
+    xh = shard(reshape(xs, B, S, H, P), ("batch", None, "ssm_heads", None))
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     if cfg.use_pallas_kernels and h0 is None:
@@ -189,7 +199,7 @@ def mamba2_forward(
     else:
         y, h_final = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk, h0=h0)
     y = y + p["D_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = reshape(y, B, S, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = einsum("bse,ed->bsd", y, p["out_proj"])
     K1 = cfg.conv_width - 1
@@ -215,9 +225,10 @@ def mamba2_decode(
     xs, Bm, Cm = xbc[..., :d_in], xbc[..., d_in : d_in + N], xbc[..., d_in + N :]
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    y, ssm_state = ssd_decode_step(xs.reshape(B, H, P), dt, A, Bm, Cm, ssm_state)
-    y = y + p["D_skip"].float()[None, :, None] * xs.reshape(B, H, P).float()
-    y = y.reshape(B, d_in).to(x.dtype)
+    xh = reshape(xs, B, H, P)
+    y, ssm_state = ssd_decode_step(xh, dt, A, Bm, Cm, ssm_state)
+    y = y + p["D_skip"].float()[None, :, None] * xh.float()
+    y = reshape(y, B, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
     return out, ssm_state, conv_state

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
-from repro_torch.dist.sharding import einsum, shard
+from repro_torch.dist.sharding import einsum, per_shard, shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     attention_decode,
@@ -31,6 +31,7 @@ from repro_torch.models.layers import (
     moe_apply,
     remat,
     rms_norm,
+    write_positions,
 )
 from repro_torch.models.mamba import Device, _dtype, _embed, lookup, normal, unstack
 
@@ -256,8 +257,9 @@ def prefill(
     for lp in unstack(params["layers"]):
         x, k, v = _block(cfg, lp, x, positions)
         if ring:  # keep the last T positions, rotated so slot == pos % T
-            k = torch.roll(k[:, S - T :], shifts=shift, dims=1)
-            v = torch.roll(v[:, S - T :], shifts=shift, dims=1)
+            # (per shard: torch 2.11's DTensor has no strategy for roll)
+            k = per_shard(lambda t: torch.roll(t, shifts=shift, dims=1), k[:, S - T :], [1])
+            v = per_shard(lambda t: torch.roll(t, shifts=shift, dims=1), v[:, S - T :], [1])
         elif T > S:  # right-padded to the slot's context
             k = F.pad(k, (0, 0, 0, 0, 0, T - S))
             v = F.pad(v, (0, 0, 0, 0, 0, T - S))
@@ -298,8 +300,7 @@ def decode_step(
 
     window = cfg.sliding_window
     slot = (pos % T if window > 0 else torch.clamp(pos, max=T - 1)).long()  # (B,)
-    kv_pos = cache["kv_pos"].clone()
-    kv_pos[torch.arange(B, device=x.device), slot] = pos
+    kv_pos = write_positions(cache["kv_pos"], slot, pos)
     valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
     if window > 0:
         valid &= kv_pos > (pos - window)[:, None]

@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.data.pipeline import shard_batch
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import gold_logits
 from repro_torch.models.registry import ModelAPI
@@ -63,6 +64,14 @@ def make_init_state(api: ModelAPI, opt_cfg: OptimizerConfig):
     return init_state
 
 
+def _rows(x: torch.Tensor, rows: slice) -> torch.Tensor:
+    """``x[rows]``; a DTensor's microbatch is placed as the batch was.
+    DTensor makes a sharded dim whole to slice it, so without this every
+    device would run the whole microbatch."""
+    part = x[rows]
+    return part.redistribute(x.device_mesh, x.placements) if is_dtensor(x) else part
+
+
 def value_and_grad(api: ModelAPI, params, batch: Dict[str, torch.Tensor], microbatches: int = 1):
     """(nll sum, token count, f32 gradient sums): the loss and gradients of
     ``batch`` summed over its ``microbatches`` slices, each slice's
@@ -81,8 +90,8 @@ def value_and_grad(api: ModelAPI, params, batch: Dict[str, torch.Tensor], microb
     n = B // M
     for i in range(M):
         rows = slice(i * n, (i + 1) * n)
-        pre = None if prefix is None else prefix[rows]
-        s, c = _loss_sum(api, live, tokens[rows], labels[rows], mask[rows], pre)
+        pre = None if prefix is None else _rows(prefix, rows)
+        s, c = _loss_sum(api, live, _rows(tokens, rows), _rows(labels, rows), _rows(mask, rows), pre)
         grads = list(torch.autograd.grad(s, leaves, allow_unused=True))
         for j, a in enumerate(acc):
             if grads[j] is not None:

@@ -99,7 +99,8 @@ def test_port_imports_with_jax_and_repro_poisoned():
     mods = _port_modules()
     assert "repro_torch.pipeline.executor" in mods
     for m in ("repro_torch.dist.pipeline", "repro_torch.dist.sharding", "repro_torch.dist.ranks",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.launch.roofline", "repro_torch.launch.hlo_cost",
+              "repro_torch.launch.dryrun"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -139,6 +140,8 @@ def test_no_source_names_jax_or_repro_in_an_import(path):
 
 def test_the_scan_covers_every_kernel_package():
     scanned = {os.path.relpath(p, PORT) for p in _source_files() if p.startswith(PORT)}
+    for module in ("roofline.py", "hlo_cost.py", "dryrun.py"):
+        assert os.path.join("launch", module) in scanned
     for kernel in ("dequant", "flash_attention", "fragment_gather", "mamba2_ssd"):
         for f in ("__init__.py", "kernel.py", "ops.py", "ref.py"):
             assert os.path.join("kernels", kernel, f) in scanned

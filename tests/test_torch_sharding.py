@@ -11,7 +11,7 @@
 - ``tests/test_sharding_regressions.py``'s four regressions on a ``fake``
   process group of world 8 over ``(data=2, model=4)``, in a subprocess, at
   the reference's bars, with the wire bytes counted by
-  ``torch_parity.CollectiveBytes``.
+  ``repro_torch.launch.hlo_cost.CollectiveBytes``.
 - Four gloo ranks over ``(data=2, model=2)``: reduced granite's logits and
   one AdamW step under the rules against the same without, and the
   elastic restore (``restore_state(shardings=)``) bitwise.
@@ -119,7 +119,7 @@ _FAKE = textwrap.dedent(
     import dataclasses, json
     import torch, torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    from torch_parity import CollectiveBytes
+    from repro_torch.launch.hlo_cost import CollectiveBytes
     from repro_torch.dist.sharding import MeshRules, _base_rules, distribute_tree, shard, use_rules
     from repro_torch.launch.mesh import make_mesh, rules_for
     from repro_torch.models import get_config, get_model
@@ -241,3 +241,102 @@ def test_elastic_restore_onto_a_different_mesh(gloo_granite):
     """``tests/test_checkpoint.py::test_elastic_restore_different_mesh``:
     saved under a (4, 1) mesh, restored under (1, 4)."""
     assert all(r["elastic"] for r in gloo_granite)
+
+
+# ------------------------------------------ torch 2.11's view rules, on 2.13
+_VIEWS = textwrap.dedent(
+    """
+    import dataclasses, json, sys, threading
+    import torch, torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from torch_dist_workers import StrictViews
+    from repro_torch.dist.sharding import distribute_tree, use_rules
+    from repro_torch.launch.mesh import make_mesh, rules_for
+    from repro_torch.models import get_config, get_model
+    from repro_torch.train import OptimizerConfig, make_init_state, make_train_step, state_logical_axes
+    from repro_torch.train.loop import _loss_sum
+    from repro_torch.train.state import tree_leaves, tree_map
+
+    world = int(sys.argv[1])
+    shape = {8: (2, 4), 256: (16, 16)}[world]
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    out = {}
+    for arch in ("granite-3-2b", "mixtral-8x22b", "zamba2-1.2b"):
+        cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=2, dtype="float32")
+        api, opt, rules = get_model(cfg), OptimizerConfig(), rules_for(cfg, mesh)
+        B, S = 2 * shape[0], 64
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1))
+        views = StrictViews()
+        with use_rules(rules):
+            state = make_init_state(api, opt)(torch.Generator().manual_seed(0), "cpu")
+            state = distribute_tree(state, state_logical_axes(api.param_logical_axes(), state.opt), rules)
+            batch = {"tokens": toks, "labels": toks, "loss_mask": torch.ones(B, S)}
+            batch = distribute_tree(batch, {k: ("batch", None) for k in batch}, rules)
+            params = distribute_tree(api.init_params(torch.Generator().manual_seed(0), "cpu"),
+                                     api.param_logical_axes(), rules)
+            cache = distribute_tree(api.init_decode_cache(B, S, "cpu"), api.cache_logical_axes(), rules)
+            with views:
+                make_train_step(api, opt)(state, batch)
+                with torch.no_grad():
+                    api.prefill(params, batch["tokens"], None, S)
+                    api.decode_step(params, distribute_tree(toks[:, :1], ("batch", None), rules), cache)
+        out[arch] = [views.views, views.refused]
+
+    # the card runs a backward in autograd's worker thread, where the
+    # thread-local rules are not active; a remat recomputation there must
+    # place its tensors as the forward did
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), num_layers=2, remat="full")
+    api, rules = get_model(cfg), rules_for(cfg, mesh)
+    with use_rules(rules):
+        live = tree_map(lambda p: p.detach().requires_grad_(),
+                        distribute_tree(api.init_params(torch.Generator().manual_seed(0), "cpu"),
+                                        api.param_logical_axes(), rules))
+        t = distribute_tree(torch.randint(0, cfg.vocab_size, (8, 32)), ("batch", None), rules)
+        loss, _ = _loss_sum(api, live, t, t, distribute_tree(torch.ones(8, 32), ("batch", None), rules), None)
+    errors = []
+
+    def backward():
+        try:
+            DTensor._op_dispatcher._allow_implicit_replication = True  # a worker inherits the caller's
+            torch.autograd.grad(loss, tree_leaves(live), allow_unused=True)
+        except Exception as e:
+            errors.append(f"{type(e).__name__}: {str(e)[:300]}")
+
+    worker = threading.Thread(target=backward)
+    worker.start()
+    worker.join(timeout=300)
+    out["worker_backward"] = errors if not worker.is_alive() else ["still running"]
+    print("RESULT " + json.dumps(out))
+    """
+)
+
+
+@pytest.fixture(scope="module", params=[8, 256], ids=["world8", "world256"])
+def strict_views(request):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), os.path.join(ROOT, "tests"), ROOT]))
+    proc = subprocess.run([sys.executable, "-c", _VIEWS, str(request.param)], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mixtral-8x22b", "zamba2-1.2b"])
+def test_no_view_torch_2_11_refuses(strict_views, arch):
+    """Every ``aten.view`` of a DTensor in a train step, a prefill and a
+    decode step of the reduced arch keeps its sharded dims where torch
+    2.11's DTensor accepts them (``torch_dist_workers.StrictViews``): no
+    flattened group has a sharded dim behind its first or an unevenly
+    sharded first, and no split leaves a first part the mesh does not
+    divide."""
+    views, refused = strict_views[arch]
+    assert views > 0 and refused == [], refused
+
+
+def test_remat_recomputes_under_the_forward_rules(strict_views):
+    """A backward run in another thread (as autograd runs a card's) with
+    ``remat="full"``: the recomputed layers are placed as in the forward
+    (else ``CheckpointError``: recomputed tensors of other shapes)."""
+    assert strict_views["worker_backward"] == []

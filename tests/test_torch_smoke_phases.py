@@ -111,3 +111,27 @@ def test_distributed_phase_runs_on_the_cpu(tmp_path, capsys):
     assert text.count("(bars held)") == 4 and "stash 2 slots" in text and "stash 6 slots" in text
     assert "0 collectives; checkpoint restored with shardings= onto the mesh" in text
     assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text
+
+
+def test_dryrun_phase_runs_on_the_cpu(tmp_path, capsys):
+    """The cost-analysis phase on the CPU: two production cells, each in a
+    process of its own (granite-3-2b decode_32k ends ``ok``, long_500k
+    ``SKIP``), the cost model on reduced granite's training cut (the FLOPs
+    counted on real and on fake tensors equal; busy time and peak memory
+    are card numbers, not measured here), and the cut's step on a (2, 2)
+    mesh of a fake world of 4."""
+    cut = _reduced("granite-3-2b", dtype="bfloat16", num_layers=2)
+    cells = [("granite-3-2b", "decode_32k", "single"), ("granite-3-2b", "long_500k", "single")]
+    out = chip_smoke.dryrun_phase(str(tmp_path), device="cpu", cells=cells, cut=cut)
+    assert [r["status"] for r in out["cells"]] == ["ok", "SKIP(full-attention @ 500k context)"]
+    assert out["cost"]["flops"] == out["cost"]["flops_fake"] > 0
+    text = capsys.readouterr().out
+    assert "forward and backward ran" in text and "not measured" in text
+    assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text
+
+
+def test_sharded_mesh_phase_runs_on_the_cpu(tmp_path, capsys):
+    """``four_card_phase``'s (2, 2) step, rehearsed on four gloo ranks:
+    reduced granite's loss within 1e-2 of the plain step's."""
+    out = chip_smoke.sharded_mesh_phase(_reduced("granite-3-2b", num_layers=2), str(tmp_path), device="cpu")
+    assert out["loss_diff"] <= 1e-2 and out["collectives"] > 0 and out["backend"] == "gloo"

@@ -6,11 +6,15 @@ results against in their own process."""
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
 import torch
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.dist.pipeline import (
     StageWire,
@@ -197,3 +201,67 @@ def one_stage(rank, Ws, x, tgt):
     (loss, _), grads = pipeline_value_and_grad(mesh, layer_fn, loss_fn, local, torch.from_numpy(x),
                                                {"tgt": torch.from_numpy(tgt)})
     return float(loss), grads["W"][0].numpy()
+
+
+class StrictViews(TorchDispatchMode):
+    """Records every ``aten.view`` / ``aten._unsafe_view`` of a DTensor that
+    runs under it and the ones torch 2.11's DTensor refuses (its
+    ``propagate_shape_and_sharding`` with ``strict_view``): a flattened
+    group whose sharded dim is not its first, or whose first dim is sharded
+    unevenly, and a split of a sharded dim whose first part the mesh dim
+    does not divide.  torch 2.13 accepts the first kind (as a strided
+    shard), so the CPU's torch alone would not show them."""
+
+    _VIEWS = ("aten.view.default", "aten._unsafe_view.default")
+
+    def __init__(self):
+        super().__init__()
+        self.views = 0
+        self.refused: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if str(func) in self._VIEWS and isinstance(args[0], DTensor):
+            self.views += 1
+            why = _refused_view(args[0], list(args[1]))
+            if why:
+                self.refused.append(f"{func}: {tuple(args[0].shape)} {list(args[0].placements)} -> "
+                                    f"{list(args[1])}: {why}")
+        return func(*args, **(kwargs or {}))
+
+
+def _refused_view(x, to_shape) -> str:
+    from torch.distributed.tensor._ops._view_ops import Flatten, InputDim, Split, view_groups
+
+    mesh = x.device_mesh
+    if -1 in to_shape:
+        to_shape[to_shape.index(-1)] = x.numel() // -math.prod(to_shape)
+    sharded = {p.dim: m for m, p in enumerate(x.placements) if isinstance(p, (Shard, _StridedShard))}
+
+    def lead(cmd):
+        if isinstance(cmd, InputDim):
+            return cmd.input_dim, ""
+        if isinstance(cmd, Flatten):
+            for i, d in enumerate(cmd.input_dims):
+                m = sharded.get(d.input_dim)
+                if m is None:
+                    continue
+                if i > 0:
+                    return None, f"flattens dim {d.input_dim}, sharded, behind dim {cmd.input_dims[0].input_dim}"
+                if x.shape[d.input_dim] % mesh.size(m):
+                    return None, f"flattens dim {d.input_dim}, sharded unevenly"
+            return cmd.input_dims[0].input_dim, ""
+        if isinstance(cmd, Split):
+            d, why = lead(cmd.input_dim)
+            if why or d is None or cmd.split_id:
+                return None, why
+            m = sharded.get(d)
+            if m is not None and cmd.group_shape[0] % mesh.size(m):
+                return None, f"splits dim {d}, sharded, into a first part of {cmd.group_shape[0]}"
+            return d, ""
+        return None, ""
+
+    for cmd in view_groups(list(x.shape), to_shape):
+        why = lead(cmd)[1]
+        if why:
+            return why
+    return ""

@@ -15,7 +15,6 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from benchmarks.workloads import write_events as ref_write_events
 from chip_smoke import write_events as port_write_events
@@ -25,6 +24,7 @@ from repro.pipeline.executor import Workspace as RefWorkspace
 from repro.service import PipelineService as RefService
 from repro_torch.core.columnar import Table as PortTable
 from repro_torch.core.device import DeviceTier as PortTier
+from repro_torch.launch.hlo_cost import CollectiveBytes
 from repro_torch.pipeline.executor import Workspace as PortWorkspace
 from repro_torch.service import PipelineService as PortService
 
@@ -309,40 +309,3 @@ def assert_one_step_matches(arch_id: str, *, microbatches: int = 1, conditioned:
                                    err_msg=jax.tree_util.keystr(path))
     for want, g in zip(jax.tree_util.tree_leaves(rstate.params), tree_leaves(state.params)):
         np.testing.assert_array_equal(to_numpy(g), np.asarray(want))
-
-
-# ------------------------------------------------------------- collectives
-class CollectiveBytes(TorchDispatchMode):
-    """Counts the wire bytes of the functional collectives
-    (``torch.ops._c10d_functional``) that run under it, one rank's view,
-    with the reference's per-device formulas (``repro.launch.hlo_cost``):
-    an all-gather moves ``out·(g-1)/g``, an all-reduce ``2·in·(g-1)/g``, a
-    reduce-scatter ``out·(g-1)``, an all-to-all ``in·(g-1)/g`` (``g`` the
-    group size).  DTensor's redistributions run through these ops, so the
-    count is what a sharded step puts on the wire."""
-
-    _WIRE = {
-        "all_gather_into_tensor": lambda b, g: b * (g - 1),
-        "all_reduce": lambda b, g: 2.0 * b * (g - 1) / g,
-        "reduce_scatter_tensor": lambda b, g: b / g * (g - 1),
-        "all_to_all_single": lambda b, g: b * (g - 1) / g,
-    }
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0.0
-        self.by_kind: Dict[str, float] = {}
-        self.count = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        wire = self._WIRE.get(func._opname) if func.namespace == "_c10d_functional" else None
-        if wire is not None:
-            from torch.distributed.distributed_c10d import _resolve_process_group
-
-            group = [a for a in args if isinstance(a, str)][-1]
-            b = wire(float(args[0].numel() * args[0].element_size()), _resolve_process_group(group).size())
-            self.bytes += b
-            self.by_kind[func._opname] = self.by_kind.get(func._opname, 0.0) + b
-            self.count += 1
-        return out
