@@ -38,12 +38,25 @@
    and four tenants submitting one pipeline together (0 duplicate
    user-function rows).  The explain CLI's 11-edit matrix then runs on the
    card and must diagnose 11 of 11 causes.
-5. Consistency phase, f32, prefill logits with the kernels on against off
+5. Examples: the port's runnable examples (``examples/torch/``) on the
+   card, each through its ``main`` with its own asserts and every kernel's
+   launch count read before and after it (they attach no device tier and
+   keep the model kernels off, as their references do): quickstart,
+   incremental_iteration, multi_tenant_service, serve_batch (reduced
+   mixtral-8x22b, ten requests on four slots), train_e2e at its defaults
+   (the reference's 8-layer granite family, D 512, 28 M parameters in
+   f32, 200 steps of 8 x 256; ms a step, tokens/s and one profiled step),
+   then 20 steps on a fresh workdir twice (the second resumes from step
+   20), multi_user_cache, incremental_join, trace_iteration and
+   chaos_restart; lint_pipeline only where the bytecode walker runs
+   (CPython 3.10/3.11); and quickstart once more as
+   ``python examples/torch/quickstart.py`` in a process of its own.
+6. Consistency phase, f32, prefill logits with the kernels on against off
    within 2e-3: zamba2-1.2b and granite-3-2b at full width and depth (greedy
    engine runs agree token for token up to a near-tie), and mixtral-8x22b at
    full width with its depth cut to 2 of 56 layers at S 8192 (a difference
    beyond the bar must trace to a router near-tie).
-6. Serve paths, bf16, kernels on, each with its launch counts set to 0 just
+7. Serve paths, bf16, kernels on, each with its launch counts set to 0 just
    before the run and read just after: zamba2-1.2b and granite-3-2b at full
    width and depth behind ``ServeEngine(slots=4, max_context=2048)``, eight
    requests of 256-1536 prompt tokens and 32 new tokens each (every prefill
@@ -52,7 +65,7 @@
    ``ServeEngine(slots=2, max_context=8192)``, two greedy prompts of 5000
    and 6500 tokens past its window, 16 new tokens each, on a 4096-slot ring
    cache.
-7. Training path, with the model kernels' launch counts set to 0 before it
+8. Training path, with the model kernels' launch counts set to 0 before it
    and still 0 after it (training takes the plain versions: the kernels
    have no backward): (a) ``repro_torch.launch.train.main`` trains
    granite-3-2b at its published size (bf16, AdamW with an f32 master, two
@@ -62,7 +75,7 @@
    granite at full width with 2 of 40 layers, card against CPU; (c) a
    checkpoint round trip at that size in bf16, bitwise; (d) 4 steps of
    EF-int8 compressed gradients at that size.
-8. Distributed path, with the model kernels' launch counts set to 0 before
+9. Distributed path, with the model kernels' launch counts set to 0 before
    it and still 0 after it: (a) ``python -m repro_torch.launch.train
    --pipeline 4 --steps 30`` through ``main``, four ranks sharing the card
    over gloo (NCCL refuses two ranks on one card; gloo carries host
@@ -82,7 +95,7 @@
    the card over gloo is tried with the first collective its step needs,
    and whether gloo carried it is printed.
 
-9. Cost analysis, with the model kernels' launch counts set to 0 before
+10. Cost analysis, with the model kernels' launch counts set to 0 before
    it and still 0 after it: (a) ``python -m repro_torch.launch.dryrun`` on
    five production cells (granite-3-2b train_4k, mixtral-8x22b
    prefill_32k, zamba2-1.2b decode_32k on the 16x16 mesh, granite-3-2b
@@ -1231,6 +1244,188 @@ def explain_phase(workdir: str, device: str = "cuda") -> int:
             "explain: " + ", ".join(f"{l} {e}!={g}" for l, e, g, _r in results if e != g)
         )
     return ok
+
+
+# ---------------------------------------------------------------- examples
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+EXAMPLES = [
+    "quickstart", "incremental_iteration", "multi_tenant_service", "serve_batch", "train_e2e",
+    "multi_user_cache", "incremental_join", "trace_iteration", "chaos_restart", "lint_pipeline",
+]
+WALKER_RUNS = sys.implementation.name == "cpython" and (3, 10) <= sys.version_info[:2] <= (3, 11)
+RESUME_STEPS = 20  # train_e2e checkpoints every 10 steps at this length
+
+
+def _all_launch_counts() -> Dict[str, int]:
+    from repro_torch.kernels.dequant import kernel as dq_kernel
+    from repro_torch.kernels.fragment_gather import kernel as fg_kernel
+
+    return {"fragment_gather": fg_kernel.launches, "dequant": dq_kernel.launches, **_launch_counts()}
+
+
+def _zero_all_launch_counts() -> None:
+    from repro_torch.kernels.dequant import kernel as dq_kernel
+    from repro_torch.kernels.fragment_gather import kernel as fg_kernel
+
+    fg_kernel.launches = dq_kernel.launches = 0
+    _zero_launch_counts()
+
+
+def _with_arg(args: List[str], flag: str, value: str) -> List[str]:
+    """``args`` with ``flag`` set to ``value``."""
+    if flag not in args:
+        return list(args) + [flag, value]
+    i = args.index(flag)
+    return list(args[: i + 1]) + [value] + list(args[i + 2:])
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module (``examples/`` is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: List[str], device) -> Tuple[object, str, float]:
+    """One example's ``main(argv)`` in this process, as a user's script runs
+    it (its own asserts included): (its return value, its stdout, wall
+    seconds).  The stdout is echoed indented, also when the example fails."""
+    import io
+
+    mod = load_example(name)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = mod.main(argv)
+        _sync(device)
+    finally:
+        wall = time.perf_counter() - t
+        for line in buf.getvalue().splitlines():
+            print(f"  | {line}")
+    return ret, buf.getvalue(), wall
+
+
+def profile_example_step(device, batch: int = 8, seq: int = 256) -> None:
+    """One step of train_e2e's model and optimizer at its default batch,
+    after two warm-up steps, under the profiler: the card's busy time, its
+    idle share and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import make_init_state, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    api = get_model(load_example("train_e2e").build_100m_config())
+    opt = OptimizerConfig(kind="adamw", peak_lr=3e-4, warmup_steps=20, decay_steps=200)
+    state = make_init_state(api, opt)(torch.Generator().manual_seed(0), device)
+    step = make_train_step(api, opt)
+    toks = np.random.default_rng(0).integers(0, api.cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    batch_ = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "loss_mask": np.ones((batch, seq), np.float32)}
+    for _ in range(2):
+        state, metrics = step(state, batch_)
+        float(metrics["loss"])
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, metrics = step(state, batch_)
+        float(metrics["loss"])
+        _sync(device)
+        wall = time.perf_counter() - t
+    print_profile(f"train_e2e step ({batch} x {seq}, f32)", prof, wall, top_n=8)
+
+
+def examples_phase(workdir: str, device="cuda", train_args: Optional[List[str]] = None,
+                   resume_steps: int = RESUME_STEPS) -> Dict:
+    """The port's ten examples (``examples/torch/``) on ``device``, each
+    through its ``main`` in this process with its own asserts: the nine
+    other than ``lint_pipeline``, which runs only where the bytecode walker
+    runs (CPython 3.10/3.11; elsewhere it abstains and the example's lint
+    asserts, like its reference's, cannot hold).  ``train_e2e`` runs with
+    ``train_args`` (default: its own defaults, 200 steps of 8 x 256), then
+    at ``resume_steps`` on a fresh workdir twice: the second call must
+    resume from that step.  ``quickstart`` also runs as a user types it,
+    ``python examples/torch/quickstart.py``, in a process of its own without
+    ``PYTHONPATH``.  Every kernel's launch count is set to 0 before the
+    phase; each example's line gives the four counts before and after it.
+    Returns the counts at the end and each example's wall."""
+    cpu = torch.device(device).type == "cpu"
+    dev = ["--device", "cpu"] if cpu else []
+    card = _card(device)
+    print(f"examples phase | {card}", flush=True)
+    _zero_all_launch_counts()
+    t0 = time.perf_counter()
+    walls: Dict[str, float] = {}
+    train: Dict[str, float] = {}
+
+    def line(label: str, wall: float, before: Dict[str, int], extra: str = "") -> None:
+        after = _all_launch_counts()
+        print(f"  example {label}: wall {wall:.3f} s, kernel launches before {before} after {after}{extra} "
+              f"| {card}", flush=True)
+
+    old_tmp = tempfile.tempdir
+    tempfile.tempdir = workdir  # the examples' temporary lakes and trace land in the phase's directory
+    try:
+        for name in EXAMPLES:
+            if name == "lint_pipeline" and not WALKER_RUNS:
+                print(f"  example lint_pipeline: not run: Python {sys.version.split()[0]}, where the bytecode "
+                      f"walker abstains (it runs on CPython 3.10/3.11), so the example's lint asserts fail "
+                      f"as its reference's do | {card}", flush=True)
+                continue
+            argv = list(dev)
+            if name == "train_e2e":
+                argv += list(train_args or []) + ["--workdir", os.path.join(workdir, "train")]
+            before = _all_launch_counts()
+            ret, _text, wall = run_example(name, argv, device)
+            walls[name] = wall
+            extra = ""
+            if name == "train_e2e":
+                sec, tokens = ret["step_seconds"], ret["tokens_per_step"]
+                med = float(np.median(sec[1:-1]))  # step 1 warms up; the last may wait on a checkpoint
+                train = {"steps": len(sec), "median_ms": med * 1e3, "tokens_per_s": tokens / med,
+                         "loss_first": ret["losses"][0], "loss_last": ret["losses"][-1]}
+                extra = (f"; {len(sec)} steps of {tokens} tokens: {med * 1e3:.2f} ms a step (median of steps "
+                         f"2-{len(sec) - 1}), {tokens / med:.0f} tokens/s, loss {ret['losses'][0]:.4f} -> "
+                         f"{ret['losses'][-1]:.4f}")
+            line(name, wall, before, extra)
+
+        # train_e2e's restart path: a fresh workdir, then the same one again
+        resume = os.path.join(workdir, "resume")
+        short = dev + _with_arg(train_args or [], "--steps", str(resume_steps)) + ["--workdir", resume]
+        for attempt in ("fresh", "resumed"):
+            before = _all_launch_counts()
+            _ret, text, wall = run_example("train_e2e", short, device)
+            said = f"resumed from checkpoint step {resume_steps}" in text
+            if said != (attempt == "resumed"):
+                raise AssertionError(f"train_e2e {attempt} run on {resume}: "
+                                     f"{'no' if not said else 'an unexpected'} resume line")
+            line(f"train_e2e --steps {resume_steps} ({attempt})", wall, before)
+
+        # quickstart as a user types it: its own process, no PYTHONPATH
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["TMPDIR"] = workdir
+        cmd = [sys.executable, os.path.join("examples", "torch", "quickstart.py")] + dev
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        for out_line in proc.stdout.splitlines():
+            print(f"  | {out_line}")
+        if proc.returncode != 0 or "final training_data columns" not in proc.stdout:
+            raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        print(f"  example quickstart as `python {' '.join(cmd[1:])}` (a process of its own, no PYTHONPATH): "
+              f"wall {wall:.3f} s, exit 0 | {card}", flush=True)
+        walls["quickstart (process)"] = wall
+    finally:
+        tempfile.tempdir = old_tmp
+    if not cpu:
+        profile_example_step(device)
+    launches = _all_launch_counts()
+    seconds = time.perf_counter() - t0
+    print(f"examples phase: {seconds:.1f} s, kernel launches {launches} | {card}", flush=True)
+    return {"launches": launches, "walls": walls, "train": train, "seconds": seconds}
 
 
 def _device_us(event) -> float:
@@ -2630,10 +2825,15 @@ def main(argv=None) -> int:
         service = service_phase(args.rows, args.frag, tmp)
     if service["launches"] < 1:
         raise AssertionError("the service phase never launched fragment_gather")
-    gather["launches"] = result["launches"] + service["launches"]
-    gather["launches_by_path"] = {"main": result["launches"], "service": service["launches"]}
     with tempfile.TemporaryDirectory() as tmp:
         explain_phase(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = examples_phase(tmp)["launches"]
+    gather["launches"] = result["launches"] + service["launches"] + examples["fragment_gather"]
+    gather["launches_by_path"] = {"main": result["launches"], "service": service["launches"],
+                                  "examples": examples["fragment_gather"]}
+    dequant["launches_by_path"] = {"kernels entry point": dequant["launches"], "examples": examples["dequant"]}
+    dequant["launches"] += examples["dequant"]
 
     f32 = dict(dtype="float32", kernels=False)
     consistency_phase(model_config(ZAMBA2, **f32), (512, 1000), greedy=True)
@@ -2655,9 +2855,11 @@ def main(argv=None) -> int:
         distributed_phase(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         dryrun_phase(tmp)
-    attention["launches"] = sum(r["flash_attention"] for r in runs.values())
     attention["launches_by_run"] = {name: r["flash_attention"] for name, r in runs.items()}
-    scan["launches"] = runs[ZAMBA2]["mamba2_ssd"]
+    attention["launches_by_run"]["examples"] = examples["flash_attention"]
+    attention["launches"] = sum(attention["launches_by_run"].values())
+    scan["launches_by_run"] = {ZAMBA2: runs[ZAMBA2]["mamba2_ssd"], "examples": examples["mamba2_ssd"]}
+    scan["launches"] = sum(scan["launches_by_run"].values())
     for entry in (gather, dequant, attention, scan):
         entry["sass_mma"] = mma[entry["name"]]
     attention["device_route"] = "bf16 on the tensor cores (wgmma, TMA loads), f32 on the CUDA cores"
