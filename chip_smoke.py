@@ -6,7 +6,15 @@
    card and times it at its main path's shapes beside its bound, its plain
    version and one PyTorch library call where there is one.
    ``fragment_gather`` is held bitwise for every bool/int/uint/float width
-   and for tiled and row-granular layouts.  ``dequant`` is held bitwise in
+   and for tiled and row-granular layouts, and its run-table kernel
+   (``fragment_union``) bitwise against ``union_ref``: every width, with
+   int8 and float32 columns in the same launch, aligned, unaligned,
+   mismatched-residue, empty and single runs and three providers, into
+   typed outputs and into byte outputs 1, 3 and 8 bytes off alignment.  The
+   UNION is timed at BENCH_8's ``split`` shape and the service's t3 shape
+   (every column in one launch) beside its bound, ``torch.cat`` of the
+   slice views and ``device_union``'s synced wall, after and (a recorded
+   constant) before the run table.  ``dequant`` is held bitwise in
    bf16 and f32 at kernel_bench's (2048, 1024), at a (2^24, 8) page, at
    ragged shapes and on a view that is not 16-byte aligned, and the kernels
    entry point (``repro_torch.kernels.dequant``, its only caller) decodes
@@ -24,13 +32,15 @@
    one month of NYC high-volume for-hire trips.  A workspace with the device
    tier must match a workspace without it bitwise at every edit, and match a
    numpy computation of the same function; warm edits must upload at least
-   5x fewer host->device bytes and go through the gather's tiled path.
+   5x fewer host->device bytes and count the gather's tiled path, and every
+   UNION that copies must launch the kernel exactly once.
 4. Service path: the multi-tenant ``PipelineService(workers=4)`` over the
    same 2^24-row table, one device tier attached to both shared stores,
    running BENCH_4's four-stage project with ``feats`` on torch.  t0 fills
    [0, 0.8R] cold; t1 (widened to [0, R]), t2 (nested, [0, 0.6R]) and t3
    (two disjoint windows inside t0's, gathered by ``fragment_gather``) are
-   submitted together.  Every run must end DONE, equal bitwise a fresh
+   submitted together, one kernel launch for each UNION that copies.
+   Every run must end DONE, equal bitwise a fresh
    no-tier cold service of its own and numpy, and, warm, move at least 3x
    fewer object-store bytes than cold; t2 and t3 must hit the tier.  Then
    BENCH_5 on the same spill-backed service: a clean shutdown and a restart
@@ -135,6 +145,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -315,8 +326,9 @@ def _random_tensor(dtype: torch.dtype, shape, gen: torch.Generator) -> torch.Ten
 
 
 def check_fragment_gather() -> None:
-    """Kernel vs plain version on the card, bitwise, every dtype: block-run
-    layouts at RB 8 and 4096, and non-aligned runs (RB=1)."""
+    """The row-tile API against the plain gather on the card, bitwise, every
+    dtype: block-run layouts at RB 8 and 4096, and non-aligned runs (RB=1);
+    then the run-table kernel itself (``check_fragment_union``)."""
     from repro_torch.kernels.fragment_gather import fragment_gather, gather_ref
     from repro_torch.kernels.fragment_gather.ops import GATHER_STATS
 
@@ -343,6 +355,69 @@ def check_fragment_gather() -> None:
             ):
                 raise AssertionError(f"fragment_gather != plain on {dtype} {name}")
         print(f"fragment_gather bitwise == plain: {dtype} x {sorted(layouts)}")
+    check_fragment_union()
+
+
+# name: (provider rows, runs as (provider, lo, hi)) in output order; runs of
+# tens of thousands of rows span many 32 KiB table entries
+UNION_LAYOUTS = {
+    "aligned": ((1 << 16,), [(0, 0, 1 << 14), (0, 1 << 15, 1 << 16)]),
+    "unaligned": ((70001,), [(0, 3, 30001), (0, 30007, 69999)]),
+    "mismatched": ((50000,), [(0, 5, 20005), (0, 20077, 49000), (0, 49001, 49002)]),
+    "empty+single": ((40000,), [(0, 4, 4), (0, 9, 39999), (0, 50, 50)]),
+    "three-providers": (
+        (40000, 9001, 777),
+        [(0, 0, 4096), (0, 4096, 20001), (1, 3, 5000), (2, 0, 8), (2, 13, 777),
+         (0, 30000, 40000), (1, 6000, 9001)],
+    ),
+}
+UNION_MIXED = (torch.int8, torch.float32)  # the other columns of each UNION
+
+
+def check_fragment_union() -> None:
+    """The run-table kernel against ``union_ref`` on the card, bitwise, for
+    every dtype and layout: three columns of mixed widths in one launch,
+    written into typed outputs and, as bytes, into an output 1, 3 and 8
+    bytes past 16-byte alignment (every source/destination residue pair
+    occurs), each output pre-filled so a stray write shows."""
+    from repro_torch.kernels.fragment_gather import fragment_union, kernel, union_ref
+
+    gen = torch.Generator().manual_seed(2)
+    for dtype in GATHER_DTYPES:
+        for name, (provider_rows, runs) in UNION_LAYOUTS.items():
+            cols = (dtype,) + UNION_MIXED
+            provs = [[_random_tensor(dt, (n,), gen) for dt in cols] for n in provider_rows]
+            rows = sum(hi - lo for _p, lo, hi in runs)
+            for shift in (None, 1, 3, 8):
+                # runs as (source, source row, output index, output row, rows)
+                if shift is None:  # typed outputs, one per column
+                    outs = [_random_tensor(dt, (rows,), gen) for dt in cols]
+                    table, at = [], [0] * len(cols)
+                    for p, lo, hi in runs:
+                        for j in range(len(cols)):
+                            table.append((provs[p][j], lo, j, at[j], hi - lo))
+                            at[j] += hi - lo
+                else:  # every column as bytes, into one byte buffer
+                    sizes = [torch.empty((), dtype=dt).element_size() for dt in cols]
+                    outs = [_random_tensor(torch.uint8, (shift + rows * sum(sizes),), gen)]
+                    table, at = [], shift
+                    for p, lo, hi in runs:
+                        for j, size in enumerate(sizes):
+                            n = (hi - lo) * size
+                            table.append((provs[p][j].view(torch.uint8), lo * size, 0, at, n))
+                            at += n
+                wants = [o.clone() for o in outs]
+                before = kernel.launches
+                fragment_union([(src, sr, outs[j], dr, n) for src, sr, j, dr, n in table])
+                union_ref([(src, sr, wants[j], dr, n) for src, sr, j, dr, n in table])
+                torch.cuda.synchronize()
+                if kernel.launches != before + 1:
+                    raise AssertionError(f"fragment_union launched {kernel.launches - before} times")
+                for got, want in zip(outs, wants):
+                    if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+                        raise AssertionError(f"fragment_union != union_ref on {dtype} {name} shift {shift}")
+        print(f"fragment_union bitwise == union_ref: {dtype} (+ int8, float32) x {sorted(UNION_LAYOUTS)} "
+              f"x outputs typed and 1/3/8 bytes off alignment")
 
 
 def check_device_tier_dtypes() -> None:
@@ -389,56 +464,147 @@ class _Elem:
         self.data = data
 
 
-def time_fragment_gather(total: int, frag: int) -> dict:
-    """The kernel at the main path's shape: the ``split`` edit gathers
-    [0, a) and [b, c) of one c-row float32 column (the merged element's pin)
-    in one tiled launch."""
-    from repro_torch.core.device import _choose_row_block
-    from repro_torch.kernels.fragment_gather.kernel import fragment_gather_call
-    from repro_torch.kernels.fragment_gather.ref import gather_ref
-
+def union_shapes(total: int, frag: int) -> Dict[str, Tuple[Dict[str, torch.dtype], int, List[Tuple[int, int]]]]:
+    """The two UNIONs of the pipeline paths that copy: ``shape -> (columns,
+    provider rows, row runs)``.  ``split``: the feats node of BENCH_8's
+    split edit, [0, a) and [b, c) of the c-row element (block-aligned).
+    ``t3``: the service's t3, whose feats rows are t0's element (keys in
+    [0, 0.8R] with flag > 0) inside its two windows (row-granular)."""
     a, b, c = total // 3 // frag * frag, 2 * total // 3 // frag * frag, total
-    bounds = [(0, a), (b, c)]
-    rb = _choose_row_block(bounds)
-    idx = np.concatenate([np.arange(lo, hi, dtype=np.int32) for lo, hi in bounds])
-    gen = torch.Generator().manual_seed(1)
-    src = torch.randn((c, 1), generator=gen).cuda()
-    block_idx = torch.from_numpy(np.ascontiguousarray(idx[::rb] // rb)).cuda()
-    idx32 = torch.from_numpy(idx).cuda()
-    idx64 = idx32.long()
-    rows = idx.shape[0]
+    (_t0, _k, t0), *_rest, (_t3, _k3, t3) = service_tenants(total, frag)
+    keep = events(total).column("flag") > 0
+    before = np.concatenate([[0], np.cumsum(keep)])  # kept rows below each key
+    t3_runs = [(int(before[lo]), int(before[hi])) for lo, hi in t3["windows"]]
+    f32, i32 = torch.float32, torch.int32
+    return {
+        "split": ({"eventTime": i32, "v1": f32, "v2": f32}, c, [(0, a), (b, c)]),
+        "t3": ({"eventTime": i32, "flag": i32, "mag": f32, "v1": f32, "v2": f32},
+               int(before[t0["hi"] + 1]), t3_runs),
+    }
 
-    kernel = lambda: fragment_gather_call(src, block_idx, row_block=rb, out_rows=rows)
-    plain = lambda: gather_ref(src, idx32)
-    library = lambda: torch.index_select(src, 0, idx64)
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
-        raise AssertionError("fragment_gather differs from plain at the main-path shape")
-    out_bytes = rows * src.element_size()
-    moved = 2 * out_bytes + block_idx.numel() * 4  # gathered bytes read + written, indices read
-    ms, plain_ms, library_ms = _time_ms(kernel), _time_ms(plain), _time_ms(library)
-    # the row-granular mode on the same rows, for the record
-    rb1_ms = _time_ms(lambda: fragment_gather_call(src, idx32, row_block=1, out_rows=rows))
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    print(
-        f"fragment_gather @ split shape: src ({c}, 1) float32, {rows} rows out, "
-        f"RB={rb}: kernel {ms:.4f} ms, RB=1 mode {rb1_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"index_select {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({moved / ms / 1e6:.1f} GB/s achieved)"
-    )
+
+def _union_inputs(columns, rows: int) -> Dict[str, torch.Tensor]:
+    """One provider's padded columns of random values on the card."""
+    from repro_torch.core.device import _pad_rows
+
+    return {
+        name: _pad_rows(
+            torch.randn(rows, device="cuda").to(dtype) if dtype.is_floating_point
+            else torch.randint(0, 1 << 30, (rows,), dtype=dtype, device="cuda")
+        )
+        for name, dtype in columns.items()
+    }
+
+
+def _union_case(columns, rows: int, bounds):
+    """One UNION of ``union_shapes`` on the card: a provider, the kernel's
+    outputs, the plain version's outputs already filled by ``union_ref``,
+    and the chunked table on the card for every column's runs."""
+    from repro_torch.kernels.fragment_gather import kernel, union_ref
+
+    prov = _union_inputs(columns, rows)
+    out_rows = sum(hi - lo for lo, hi in bounds)
+    got = {c: torch.empty(out_rows, dtype=dt, device="cuda") for c, dt in columns.items()}
+    want = {c: torch.empty_like(t) for c, t in got.items()}
+    plain, src_at, dst_at, nbytes = [], [], [], []
+    for c in columns:
+        at, size = 0, got[c].element_size()
+        for lo, hi in bounds:
+            plain.append((prov[c], lo, want[c], at, hi - lo))
+            src_at.append(prov[c].data_ptr() + lo * size)
+            dst_at.append(got[c].data_ptr() + at * size)
+            nbytes.append((hi - lo) * size)
+            at += hi - lo
+    union_ref(plain)
+    table = torch.from_numpy(kernel.chunk_table(src_at, dst_at, nbytes)).cuda()
+    return prov, got, want, plain, table
+
+
+def union_walls(columns, prov: Dict[str, torch.Tensor], bounds, reps: int = 7) -> Tuple[float, Dict[str, torch.Tensor]]:
+    """``device_union``'s wall in ms over ``bounds`` of the provider
+    ``prov``, host work included and ending in a sync: the median of
+    ``reps`` calls after two, and the last call's output.  It uses only
+    what every version of the port's tier has, so a checkout of an earlier
+    commit can be measured with it (its ``src`` first on the path)."""
+    from repro_torch.core.device import device_union
+
+    runs = [(prov, lo, hi) for lo, hi in bounds]
+    times = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = device_union(runs, list(columns))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times[2:])), out
+
+
+# device_union's wall before the run-table kernel: union_walls on the parent
+# commit (e36a94a, one fragment_gather launch per column on a per-row host
+# index), NVIDIA H100 80GB HBM3, 700.00 W, in one chip call with the
+# run-table version (parent, change, change, parent): the mean of the
+# parent's two (split 203.0094 and 195.3515 ms, t3 55.2633 and 55.0821 ms;
+# the run table's 0.4092 and 0.4451 ms, 0.4142 and 0.3674 ms)
+UNION_WALL_BEFORE_MS = {"split": 199.18043049999668, "t3": 55.17266049999847}
+
+
+def time_fragment_union(total: int, frag: int) -> dict:
+    """The run-table kernel at the two UNIONs of ``union_shapes``: every
+    column of the UNION in one launch, against its bound, the plain version
+    on the card (one slice copy per run and column), ``torch.cat`` of the
+    slice views per column (summed over the columns) and ``device_union``'s
+    wall before and after.  The kernel's table launch and ``device_union``
+    on the same provider are each held bitwise against the plain version.
+    The ``split`` numbers fill the kernels line."""
+    from repro_torch.kernels.fragment_gather import kernel, union_ref
+    from repro_torch.kernels.fragment_gather.ref import signed_view
+
+    result = {}
+    for shape, (columns, rows, bounds) in union_shapes(total, frag).items():
+        prov, got, want, plain, table = _union_case(columns, rows, bounds)
+        # the wrapper itself (checks, table build, pinned upload) on the same
+        # provider, held against the plain version too
+        wall, out = union_walls(columns, prov, bounds)
+        for c in columns:
+            if not torch.equal(out[c].view(torch.uint8), want[c].view(torch.uint8)):
+                raise AssertionError(f"device_union differs from plain at the {shape} shape ({c})")
+        out_rows = got[next(iter(columns))].shape[0]
+        launch = lambda: kernel.launch_table(table)
+        launch()
+        torch.cuda.synchronize()
+        for c in columns:
+            if not torch.equal(got[c].view(torch.uint8), want[c].view(torch.uint8)):
+                raise AssertionError(f"fragment_union differs from plain at the {shape} shape ({c})")
+        err = max(float((got[c] - want[c]).abs().max()) for c in columns if got[c].is_floating_point())
+        views = [[signed_view(prov[c][lo:hi]) for lo, hi in bounds] for c in columns]
+        out_bytes = sum(t.nbytes for t in got.values())
+        moved = 2 * out_bytes + table.nbytes  # gathered bytes read + written, the table read
+        r = result[shape] = {
+            "columns": len(columns), "out_rows": out_rows, "table_entries": int(table.shape[0]),
+            "ms": _time_ms(launch), "plain_ms": _time_ms(lambda: union_ref(plain)),
+            "library_ms": _time_ms(lambda: [torch.cat(v) for v in views]),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "max_abs_err": err,
+            "wall_ms": wall, "wall_before_ms": UNION_WALL_BEFORE_MS[shape],
+        }
+        print(
+            f"fragment_union @ {shape} shape: {len(columns)} columns x {out_rows} rows out "
+            f"({out_bytes} B) from {len(bounds)} runs each, {r['table_entries']} table entries: "
+            f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({moved / r['ms'] / 1e6:.1f} GB/s achieved), torch.cat of views {r['library_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms; device_union wall {r['wall_ms']:.4f} ms, before "
+            f"{r['wall_before_ms']:.4f} ms (recorded: parent commit e36a94a on NVIDIA H100 80GB HBM3, 700.00 W)"
+        )
+    split = result["split"]
     return {
         "name": "fragment_gather",
         "route": "cuda",
         "source": "src/repro_torch/kernels/fragment_gather/csrc/fragment_gather.cu",
-        "replaces": "src/repro/kernels/fragment_gather/kernel.py:44",
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "replaces": "src/repro/kernels/fragment_gather/kernel.py:61",
+        **{k: split[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
         "bound_by": "bytes",
-        "library_ms": library_ms,
+        "library_ms": split["library_ms"],
+        "library": "torch.cat of the slice views, summed over the columns",
+        "shapes": result,
     }
 
 
@@ -842,6 +1008,28 @@ def check_mamba2_ssd() -> dict:
 
 
 # --------------------------------------------------------------- main path
+@contextlib.contextmanager
+def counting_unions():
+    """Counts, while active, the ``device_union`` calls that copy (more than
+    one non-empty run): each must launch the kernel exactly once.  Every
+    caller looks ``device_union`` up in its module when it calls it."""
+    from repro_torch.core import device
+
+    inner, counts, lock = device.device_union, {"copying": 0}, threading.Lock()
+
+    def counted(runs, columns, **kw):
+        if sum(hi > lo for _arrays, lo, hi in runs) > 1:
+            with lock:
+                counts["copying"] += 1
+        return inner(runs, columns, **kw)
+
+    device.device_union = counted
+    try:
+        yield counts
+    finally:
+        device.device_union = inner
+
+
 def _ledger(res) -> Dict[str, int]:
     return {
         k: int(getattr(res, k))
@@ -881,46 +1069,47 @@ def main_path(rows: int, frag: int, workdir: str, device: str = "cuda") -> Dict:
     print(f"lake written: {rows} rows x 2 lakes, {time.perf_counter() - t0:.2f} s")
 
     iterations = []
-    kernel.launches = 0
-    for label, windows, append in edits:
-        if append is not None:
-            write_events(dev_ws.catalog, **append)
-            write_events(ref_ws.catalog, **append)
-            extra = events(**append)
-            raw = {c: np.concatenate([raw[c], extra.column(c)]) for c in raw}
-        where = where_of(windows)
-        t = time.perf_counter()
-        dres = dev_ws.run(device_project(where))
-        sync()
-        dwall = time.perf_counter() - t
-        t = time.perf_counter()
-        rres = ref_ws.run(device_project(where))
-        sync()
-        rwall = time.perf_counter() - t
-        want = expected_score(raw, windows)
-        for name, table in dres.outputs.items():
-            other = rres.outputs[name]
-            if table.column_names != other.column_names:
-                raise AssertionError(f"{label}:{name} columns differ")
-            for col in table.column_names:
-                if not np.array_equal(table.column(col), other.column(col)):
-                    raise AssertionError(f"device tier != no tier at {label}:{name}:{col}")
-        for name, table in dres.outputs.items():
-            for col, t in getattr(table, "device_columns", {}).items():
-                if t.device.type != torch.device(device).type:
-                    raise AssertionError(f"{label}:{name}:{col} served from {t.device}")
-        score = dres.outputs["score"]
-        for col, arr in want.items():
-            if not np.array_equal(score.column(col), arr):
-                raise AssertionError(f"score != numpy reference at {label}:{col}")
-        d, r = _ledger(dres), _ledger(rres)
-        iterations.append({"label": label, "device": d, "plain": r})
-        print(
-            f"edit {label:10s} rows_out {score.num_rows:>9d}  wall device {dwall:.4f} s  "
-            f"no-tier {rwall:.4f} s  h2d {d['bytes_h2d']:>11d} vs {r['bytes_h2d']:>11d} B  "
-            f"gather fast/fb {d['gather_fast']}/{d['gather_fallbacks']}  bitwise ok"
-        )
-    launches = kernel.launches
+    with counting_unions() as copying:
+        kernel.launches = 0
+        for label, windows, append in edits:
+            if append is not None:
+                write_events(dev_ws.catalog, **append)
+                write_events(ref_ws.catalog, **append)
+                extra = events(**append)
+                raw = {c: np.concatenate([raw[c], extra.column(c)]) for c in raw}
+            where = where_of(windows)
+            t = time.perf_counter()
+            dres = dev_ws.run(device_project(where))
+            sync()
+            dwall = time.perf_counter() - t
+            t = time.perf_counter()
+            rres = ref_ws.run(device_project(where))
+            sync()
+            rwall = time.perf_counter() - t
+            want = expected_score(raw, windows)
+            for name, table in dres.outputs.items():
+                other = rres.outputs[name]
+                if table.column_names != other.column_names:
+                    raise AssertionError(f"{label}:{name} columns differ")
+                for col in table.column_names:
+                    if not np.array_equal(table.column(col), other.column(col)):
+                        raise AssertionError(f"device tier != no tier at {label}:{name}:{col}")
+            for name, table in dres.outputs.items():
+                for col, t in getattr(table, "device_columns", {}).items():
+                    if t.device.type != torch.device(device).type:
+                        raise AssertionError(f"{label}:{name}:{col} served from {t.device}")
+            score = dres.outputs["score"]
+            for col, arr in want.items():
+                if not np.array_equal(score.column(col), arr):
+                    raise AssertionError(f"score != numpy reference at {label}:{col}")
+            d, r = _ledger(dres), _ledger(rres)
+            iterations.append({"label": label, "device": d, "plain": r})
+            print(
+                f"edit {label:10s} rows_out {score.num_rows:>9d}  wall device {dwall:.4f} s  "
+                f"no-tier {rwall:.4f} s  h2d {d['bytes_h2d']:>11d} vs {r['bytes_h2d']:>11d} B  "
+                f"gather fast/fb {d['gather_fast']}/{d['gather_fallbacks']}  bitwise ok"
+            )
+        launches = kernel.launches
 
     def warm(side: str, key: str) -> int:
         return sum(it[side][key] for it in iterations[1:])
@@ -932,13 +1121,15 @@ def main_path(rows: int, frag: int, workdir: str, device: str = "cuda") -> Dict:
         "h2d_ratio": ratio,
         "gather_fast": warm("device", "gather_fast"),
         "launches": launches,
+        "copying_unions": copying["copying"],
         "tier": dev_ws.device.stats(),
         "iterations": iterations,
     }
     print(
         f"main path: warm H2D {warm('plain', 'bytes_h2d')} B no-tier vs "
         f"{warm('device', 'bytes_h2d')} B tier = {ratio:.3f}x, gather_fast "
-        f"{result['gather_fast']}, fragment_gather launches {launches}"
+        f"{result['gather_fast']}, fragment_gather launches {launches} for "
+        f"{result['copying_unions']} UNIONs that copy"
     )
     if torch.device(device).type == "cuda":
         profile_warm_edits(dev_ws, [e for e in edits if e[0] in ("split", "rerun2")])
@@ -1125,14 +1316,15 @@ def service_phase(rows: int, frag: int, workdir: str, device: str = "cuda") -> D
 
     root = os.path.join(workdir, "shared")
     tracer = Tracer()
-    kernel.launches = 0
     with service(root, workers=4, spill=True, tracer=tracer) as svc:
         _attach_tier(svc, device)
         write_events(svc.catalog, rows)
         before = svc.store.stats.snapshot()
-        warm = _run_tenants(svc, tenants)
+        with counting_unions() as copying:
+            kernel.launches = 0
+            warm = _run_tenants(svc, tenants)
+            launches = kernel.launches
         first_bytes = svc.store.stats.delta(before).bytes_read
-        launches = kernel.launches
         tenant_rows = {}
         for name, kind, kw in tenants:
             res, wall = warm[name]
@@ -1224,6 +1416,7 @@ def service_phase(rows: int, frag: int, workdir: str, device: str = "cuda") -> D
         "rows": rows,
         "frag": frag,
         "launches": launches,
+        "copying_unions": copying["copying"],
         "tenants": tenant_rows,
         "cross_tenant_hits": stats["cross_tenant_hits"],
         "restart_ratio": restart_ratio,
@@ -2808,7 +3001,7 @@ def main(argv=None) -> int:
     check_fragment_gather()
     check_device_tier_dtypes()
     total = args.rows // args.frag * args.frag
-    gather = time_fragment_gather(total, args.frag)
+    gather = time_fragment_union(total, args.frag)
     dequant = check_dequant()
     attention = check_flash_attention()
     scan = check_mamba2_ssd()
@@ -2825,6 +3018,13 @@ def main(argv=None) -> int:
         service = service_phase(args.rows, args.frag, tmp)
     if service["launches"] < 1:
         raise AssertionError("the service phase never launched fragment_gather")
+    for path, run in (("main path", result), ("service", service)):
+        if run["launches"] != run["copying_unions"]:
+            raise AssertionError(
+                f"{path}: {run['launches']} fragment_gather launches for "
+                f"{run['copying_unions']} UNIONs that copy (one each expected)"
+            )
+        print(f"{path}: one fragment_gather launch per UNION that copies ({run['launches']})")
     with tempfile.TemporaryDirectory() as tmp:
         explain_phase(tmp)
     with tempfile.TemporaryDirectory() as tmp:

@@ -12,15 +12,16 @@ already "had".  :class:`DeviceTier` closes that gap:
   are keyed by ``elem_id``; element ids are never reused (merges mint new
   elements), so a stale pin can never alias a different payload.
 - **serving**: :func:`device_union` assembles hit∪residual output columns
-  *on device* — contiguous row runs of pinned elements go through the
-  ``fragment_gather`` CUDA kernel (RB-aligned block runs take its tiled
-  fast path; non-aligned runs are counted as fallback downgrades), and the
-  per-source outputs are concatenated device-side.  No host round-trip.
+  *on device* — every row run of every column, from every pinned provider,
+  is copied into the preallocated outputs by one launch of the
+  ``fragment_gather`` CUDA kernel, driven by a table of the runs' bounds
+  (non-aligned multi-run groups are counted as fallback downgrades, as the
+  reference counts them).  No host round-trip, no per-row index.
 - **merge replication**: when the store merges two pinned elements, the
-  merged element's device columns are built by gathering from the parents'
-  pins (device→device), so a warm iteration loop re-uploads only the fresh
-  residual — H2D bytes stay proportional to the *edit*, exactly like the
-  RAM tier's recompute bytes.
+  merged element's device columns are built by the same UNION from the
+  parents' pins (device→device), so a warm iteration loop re-uploads only
+  the fresh residual — H2D bytes stay proportional to the *edit*, exactly
+  like the RAM tier's recompute bytes.
 - **demotion**: the tier has its own byte budget with LRU eviction.  The
   RAM tier stays authoritative (a device pin is a *copy*, never the only
   copy), so demotion is just a drop — the next torch consumer re-pins.
@@ -50,7 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.columnar import ChunkedTable, Table
-from repro_torch.kernels.fragment_gather.ref import gather_ref, signed_view
+from repro_torch.kernels.fragment_gather.ops import fragment_union
+from repro_torch.kernels.fragment_gather.ref import signed_view
 from repro_torch.obs.metrics import MetricAttr, Metrics
 from repro_torch.obs.trace import Tracer, get_tracer
 
@@ -65,19 +67,13 @@ __all__ = [
 ]
 
 # pin-time padding granularity: every pinned column is padded to a multiple
-# of ROW_BLOCK rows so the gather kernel's smallest tile is always in-bounds
+# of ROW_BLOCK rows, as the reference pads them for its gather kernel's
+# smallest tile; the tier's byte ledgers count the padding
 ROW_BLOCK = 8
 
-# candidate row-block sizes for a union gather, largest first — bigger
-# blocks mean fewer, longer contiguous copies
+# the reference's row-block sizes for a union gather, largest first; a
+# multi-run group is counted gather_fast when one of them divides every run
 _RB_CANDIDATES = (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8)
-
-# the reference sends non-aligned gathers above this row count to an XLA
-# take instead of its RB=1 kernel (interpret-mode cost).  The port keeps the
-# split only for CPU tensors, whose gathers are the plain version either
-# way; on CUDA every gather launches the kernel (see kernels/fragment_gather
-# ops.py for the one process-wide counter this changes)
-FALLBACK_KERNEL_MAX_ROWS = 1024
 
 # jax's x32 narrowing on jnp.asarray, mirrored so port and reference agree
 _X32 = {
@@ -116,10 +112,6 @@ def to_device(col: np.ndarray, device: torch.device) -> torch.Tensor:
         # read-only host arrays are fine: .to() copies them off at once
         warnings.simplefilter("ignore", UserWarning)
         return torch.from_numpy(col).to(device)
-
-
-def _cat(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.cat([signed_view(p) for p in parts]).view(parts[0].dtype)
 
 
 def _bump(ledger: Optional[Dict[str, int]], key: str, by: int = 1) -> None:
@@ -355,10 +347,11 @@ class DeviceTier:
 
     def replicate_merge(self, a, b, merged, a_window, b_window) -> bool:
         """Build the merged element's device columns from its parents'
-        pins (device→device fragment gather — zero H2D).  Mirrors
+        pins (device→device — zero H2D).  Mirrors
         ``DifferentialStore._merge_pair`` exactly: ``a`` contributes its
         rows inside ``a_window``, ``b`` inside ``b_window`` (disjoint), and
-        the merged payload is their key-ordered union.  Returns False (and
+        the merged payload is their key-ordered union (one
+        :func:`device_union`, so one launch).  Returns False (and
         pins nothing) when either parent is not fully resident here."""
         cols = list(merged.columns)
         prov_a = self.element_arrays(a, cols)
@@ -424,25 +417,6 @@ def _choose_row_block(bounds: Sequence[Tuple[int, int]]) -> Optional[int]:
     return None
 
 
-def _gather_runs(src1d: torch.Tensor, bounds, ledger) -> torch.Tensor:
-    """Extract and concatenate ``bounds`` row runs of one padded source
-    column via ``fragment_gather``.  Aligned runs take the block-run fast
-    path; others are counted as fallback downgrades."""
-    from repro_torch.kernels.fragment_gather.ops import fragment_gather
-
-    idx = np.concatenate(
-        [np.arange(lo, hi, dtype=np.int32) for lo, hi in bounds]
-    )
-    rb = _choose_row_block(bounds)
-    if rb is not None:
-        _bump(ledger, "gather_fast")
-        return fragment_gather(src1d.reshape(-1, 1), idx, row_block=rb)[:, 0]
-    _bump(ledger, "gather_fallbacks")
-    if src1d.device.type == "cpu" and idx.shape[0] > FALLBACK_KERNEL_MAX_ROWS:
-        return gather_ref(src1d, torch.from_numpy(idx))
-    return fragment_gather(src1d.reshape(-1, 1), idx, row_block=ROW_BLOCK)[:, 0]
-
-
 def device_union(
     runs: Sequence[Tuple[Mapping[str, torch.Tensor], int, int]],
     columns: Sequence[str],
@@ -453,12 +427,16 @@ def device_union(
 
     ``runs`` is the output's row layout **in final row order**: each entry is
     ``(arrays, lo, hi)`` — a provider mapping of padded 1-D device columns
-    and the half-open real-row range it contributes.  Consecutive runs from
-    the same provider become ONE ``fragment_gather`` call (the multi-interval
-    hit case — a true block-run gather); single-run groups are device slices
-    (a gather would be the identity).  Returns exact-length device columns,
-    bitwise-equal to the numpy reference ``np.concatenate`` of the same
-    slices followed by :func:`to_device`.  A column may be a view of a
+    and the half-open real-row range it contributes.  A UNION of one run is
+    a device slice of each column (a copy would be the identity).  Any other
+    allocates each output column once and copies every run of every column
+    in ONE ``fragment_union`` launch, from a table of the runs' bounds: no
+    per-row index is built.  Consecutive runs from the same provider form a
+    group; each multi-run group of each column is counted in the ledger as
+    the reference's gather counts it (``gather_fast`` where every run is
+    block-aligned, else ``gather_fallbacks``).  Returns exact-length device
+    columns, bitwise-equal to the numpy reference ``np.concatenate`` of the
+    same slices followed by :func:`to_device`.  A column may be a view of a
     provider's tensor: callers that hand columns to user code clone them.
     """
     if not runs:
@@ -476,21 +454,26 @@ def device_union(
         first = runs[0][0]
         return {c: first[c][0:0] for c in columns}
 
-    out: Dict[str, torch.Tensor] = {}
-    total_rows = 0
+    total_rows = sum(hi - lo for _arrays, bounds in groups for lo, hi in bounds)
+    if len(groups) == 1 and len(groups[0][1]) == 1:
+        arrays, ((lo, hi),) = groups[0]
+        out = {c: arrays[c][lo:hi] for c in columns}
+    else:
+        out, table = {}, []
+        for c in columns:
+            like = groups[0][0][c]
+            col = out[c] = torch.empty(total_rows, dtype=like.dtype, device=like.device)
+            at = 0
+            for arrays, bounds in groups:
+                if len(bounds) > 1:
+                    fast = _choose_row_block(bounds) is not None
+                    _bump(ledger, "gather_fast" if fast else "gather_fallbacks")
+                for lo, hi in bounds:
+                    table.append((arrays[c], lo, col, at, hi - lo))
+                    at += hi - lo
+        fragment_union(table)
     for c in columns:
-        parts = []
-        for arrays, bounds in groups:
-            src = arrays[c]
-            if len(bounds) == 1:
-                lo, hi = bounds[0]
-                parts.append(src[lo:hi])
-            else:
-                parts.append(_gather_runs(src, bounds, ledger))
-        col = parts[0] if len(parts) == 1 else _cat(parts)
-        out[c] = col
-        total_rows = int(col.shape[0])
-        _bump(ledger, "device_union_bytes", int(col.nbytes))
+        _bump(ledger, "device_union_bytes", int(out[c].nbytes))
     _bump(ledger, "device_unions")
     _bump(ledger, "device_union_rows", total_rows)
     return out

@@ -1,35 +1,47 @@
-"""Wrapper: arbitrary row-index gather via the block-run CUDA kernel.
+"""Wrappers: the UNION of row runs in one launch, and the reference's
+arbitrary row-index gather.
 
-Converts a per-row index vector into the kernel's block-run form, exactly as
-the reference wrapper does: if every RB-aligned group of indices is a
-contiguous run starting at an RB-aligned source row (the common case —
-fragments are contiguous row ranges), rows move in RB-row tiles; otherwise
-the gather falls back to RB=1 (row-granular).  Fallback downgrades are
-counted in :data:`GATHER_STATS` under the reference's rule.
+:func:`fragment_union` copies row runs between 1-D tensors — the device
+tier's hit∪residual UNION, every column and provider at once — through one
+launch of the run-table CUDA kernel.  It takes the runs' bounds, never a
+per-row index.
 
-A CPU tensor takes the plain version (``ref.gather_ref``); a CUDA tensor
-launches the kernel or raises.  The TPU wrapper's column tiling and lane
-padding have no counterpart: the kernel moves rows as byte strings, so
-``col_block`` is accepted for signature parity and has no effect.
+:func:`fragment_gather` keeps the reference wrapper's contract: it converts
+a per-row index vector into block-run form, exactly as the reference does.
+If every RB-aligned group of indices is a contiguous run starting at an
+RB-aligned source row, rows move in RB-row tiles; otherwise the gather falls
+back to RB=1 (row-granular).  Fallback downgrades are counted in
+:data:`GATHER_STATS` under the reference's rule.  The tiles reach the same
+run-table kernel, consecutive tiles merged into runs.
 
-One ledger differs from the reference's on CUDA: the reference's device tier
-sends non-aligned gathers above ``FALLBACK_KERNEL_MAX_ROWS`` rows to an XLA
-take, which bypasses this wrapper; the port's tier sends them here, to the
-kernel's row-granular mode, so the process-wide ``GATHER_STATS.fallbacks``
-counts them too.  The per-run ``gather_fallbacks`` ledger is unaffected.
+A CPU tensor takes the plain version (``ref.union_ref``, ``ref.gather_ref``);
+a CUDA tensor launches the kernel or raises.  The TPU wrapper's column tiling
+and lane padding have no counterpart: the kernel moves rows as byte strings,
+so ``col_block`` is accepted for signature parity and has no effect.
+
+:data:`GATHER_STATS` counts calls of :func:`fragment_gather` only.  The
+reference's device tier gathers through its ``fragment_gather``, so there
+the process-wide counters also count the tier's multi-run groups; the
+port's tier goes through :func:`fragment_union` and leaves them alone.  The
+tier's own per-run ``gather_fast`` / ``gather_fallbacks`` ledger is the
+reference's, group for group.
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.fragment_gather.kernel import fragment_gather_call
-from repro_torch.kernels.fragment_gather.ref import gather_ref
+from repro_torch.kernels.fragment_gather.kernel import fragment_gather_call, fragment_union_call
+from repro_torch.kernels.fragment_gather.ref import gather_ref, union_ref
 
-__all__ = ["fragment_gather", "GATHER_STATS", "GatherStats"]
+__all__ = ["fragment_gather", "fragment_union", "GATHER_STATS", "GatherStats"]
+
+# (src, src_row, dst, dst_row, rows): dst[dst_row:dst_row+rows] = src[src_row:src_row+rows]
+Run = Tuple[torch.Tensor, int, torch.Tensor, int, int]
 
 
 class GatherStats:
@@ -59,6 +71,36 @@ class GatherStats:
 
 
 GATHER_STATS = GatherStats()
+
+
+def fragment_union(runs: Sequence[Run]) -> None:
+    """Copy every run ``(src, src_row, dst, dst_row, rows)`` between 1-D
+    contiguous tensors of one dtype per run.  CPU tensors take
+    ``union_ref``; CUDA tensors on one card take one kernel launch for all
+    the runs, or raise."""
+    if all(src.device.type == "cpu" and dst.device.type == "cpu" for src, _s, dst, _d, _n in runs):
+        union_ref(runs)
+        return
+    device = runs[0][2].device
+    src_at, dst_at, nbytes = [], [], []
+    for src, src_row, dst, dst_row, rows in runs:
+        if not (src.is_cuda and dst.is_cuda and src.device == dst.device == device):
+            raise ValueError("fragment_union takes CUDA tensors on one device")
+        if src.dtype != dst.dtype:
+            raise TypeError(f"a run copies {src.dtype} into {dst.dtype}")
+        if src.dim() != 1 or dst.dim() != 1 or not (src.is_contiguous() and dst.is_contiguous()):
+            raise ValueError("fragment_union takes contiguous 1-D tensors")
+        # the kernel does no bounds check: a run past either end would copy
+        # memory beyond the column
+        if rows < 0 or src_row < 0 or dst_row < 0 or src_row + rows > src.shape[0] or dst_row + rows > dst.shape[0]:
+            raise IndexError(
+                f"run of {rows} rows from {src_row} (of {src.shape[0]}) to {dst_row} (of {dst.shape[0]})"
+            )
+        size = src.element_size()
+        src_at.append(src.data_ptr() + src_row * size)
+        dst_at.append(dst.data_ptr() + dst_row * size)
+        nbytes.append(rows * size)
+    fragment_union_call(src_at, dst_at, nbytes, device)
 
 
 def fragment_gather(
@@ -95,10 +137,6 @@ def fragment_gather(
 
     if src.device.type == "cpu":
         return gather_ref(src, torch.from_numpy(row_idx))
-    block_idx = np.ascontiguousarray(row_idx.reshape(-1, rb)[:, 0] // rb)
     return fragment_gather_call(
-        src,
-        torch.from_numpy(block_idx).to(src.device),
-        row_block=rb,
-        out_rows=R,
+        src, row_idx.reshape(-1, rb)[:, 0] // rb, row_block=rb, out_rows=R
     )
