@@ -177,11 +177,12 @@ class DeviceTier:
     def tracer(self) -> Tracer:
         return self._tracer if self._tracer is not None else get_tracer()
 
-    def adopt_obs(self, metrics: Metrics, tracer: Tracer) -> None:
-        """Join an owner's registry/tracer.  One tier often backs both the
-        scan cache and the model store — the first owner wins, so the tier's
-        counters land in exactly one registry."""
-        if self._metrics is None:
+    def adopt_obs(self, metrics: Optional[Metrics], tracer: Tracer) -> None:
+        """Join an owner's registry/tracer (``metrics=None``: the tracer
+        alone).  One tier often backs both the scan cache and the model
+        store — the first owner wins, so the tier's counters land in exactly
+        one registry."""
+        if self._metrics is None and metrics is not None:
             self._metrics = metrics
         if self._tracer is None:
             self._tracer = tracer
@@ -365,7 +366,9 @@ class DeviceTier:
         if not runs:
             return True  # empty merge: nothing to pin, trivially replicated
         runs.sort(key=lambda r: r[0])
-        arrays = device_union([(prov, lo, hi) for _key, prov, lo, hi in runs], cols)
+        arrays = device_union(
+            [(prov, lo, hi) for _key, prov, lo, hi in runs], cols, tracer=self.tracer
+        )
         rows = sum(hi - lo for _key, _prov, lo, hi in runs)
         self.adopt(merged.elem_id, arrays, rows, replicated=True)
         return True
@@ -422,6 +425,7 @@ def device_union(
     columns: Sequence[str],
     *,
     ledger: Optional[Dict[str, int]] = None,
+    tracer: Optional[Tracer] = None,
 ) -> Dict[str, torch.Tensor]:
     """Assemble the hit∪residual UNION on device.
 
@@ -438,9 +442,21 @@ def device_union(
     columns, bitwise-equal to the numpy reference ``np.concatenate`` of the
     same slices followed by :func:`to_device`.  A column may be a view of a
     provider's tensor: callers that hand columns to user code clone them.
+
+    With an enabled ``tracer`` the call is a ``device.union`` span (the
+    host's run table, pinned upload and launch; the kernel's own device
+    time is the profiler's) with the output ``bytes`` the ledger counts,
+    the ``runs`` and ``launched`` (0 or 1).
     """
     if not runs:
         return {}
+    if tracer is None or not tracer.enabled:
+        return _union(runs, columns, ledger, None)
+    with tracer.span("device.union") as sp:
+        return _union(runs, columns, ledger, sp)
+
+
+def _union(runs, columns, ledger, sp) -> Dict[str, torch.Tensor]:
     # group consecutive runs by provider identity
     groups: List[Tuple[Mapping[str, torch.Tensor], List[Tuple[int, int]]]] = []
     for arrays, lo, hi in runs:
@@ -455,7 +471,8 @@ def device_union(
         return {c: first[c][0:0] for c in columns}
 
     total_rows = sum(hi - lo for _arrays, bounds in groups for lo, hi in bounds)
-    if len(groups) == 1 and len(groups[0][1]) == 1:
+    launched = len(groups) > 1 or len(groups[0][1]) > 1
+    if not launched:
         arrays, ((lo, hi),) = groups[0]
         out = {c: arrays[c][lo:hi] for c in columns}
     else:
@@ -472,6 +489,10 @@ def device_union(
                     table.append((arrays[c], lo, col, at, hi - lo))
                     at += hi - lo
         fragment_union(table)
+    if sp is not None:
+        sp.attrs["bytes"] = sum(int(out[c].nbytes) for c in columns)
+        sp.attrs["runs"] = sum(len(bounds) for _arrays, bounds in groups)
+        sp.attrs["launched"] = int(launched)
     for c in columns:
         _bump(ledger, "device_union_bytes", int(out[c].nbytes))
     _bump(ledger, "device_unions")

@@ -23,6 +23,7 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence, Tupl
 
 import numpy as np
 
+from repro_torch.core import refetch
 from repro_torch.core.baselines import NoCache, ScanCache
 from repro_torch.core.cache import DifferentialCache
 from repro_torch.core.columnar import ChunkedTable, Table
@@ -164,6 +165,8 @@ class ScanExecutor:
             and not sorted_output
         )
         dev_ledger: Dict[str, int] = {}
+        traced = self.tracer.enabled
+        refetch_gets = 0
 
         # thread-local ledger: per-scan deltas stay exact when concurrent
         # runs (repro_torch.service workers) share this object store
@@ -224,6 +227,10 @@ class ScanExecutor:
                             kind="scan",
                         )
                     if wait_event is None:
+                        if traced and not plan.residual.empty:
+                            refetch_gets = refetch.refetch_gets(
+                                self.cache, scan.table, snapshot, plan.residual, phys
+                            )
                         for hit in plan.hits:
                             views = hit.element.slice_window(hit.window, phys)
                             for v in views:
@@ -260,11 +267,16 @@ class ScanExecutor:
             residual_rows = 0
             if not plan.residual.empty:
                 with self.tracer.span("scan.residual", table=table) as res_sp:
+                    read_before = ledger.snapshot() if traced else None
                     fresh = read_window(
                         self.store, snapshot, plan.residual, phys, meta.sort_key,
                         schema=meta.schema,
                     )
                     res_sp.attrs["rows"] = fresh.num_rows
+                    if traced:
+                        # the read's GETs, and those of chunks the cache held
+                        res_sp.attrs["gets"] = ledger.delta(read_before).get_requests
+                        res_sp.attrs["refetch_gets"] = refetch_gets
                 fresh_dev = None
                 if dev_ok and fresh.num_rows:
                     fresh_dev = self._to_device(fresh, proj, dev_ledger, tier.device)
@@ -367,7 +379,9 @@ class ScanExecutor:
                 # property-checked in test_torch_device
                 from repro_torch.core.device import DeviceChunkedTable, device_union
 
-                arrays = device_union(dev_runs, proj, ledger=dev_ledger)
+                arrays = device_union(
+                    dev_runs, proj, ledger=dev_ledger, tracer=self.tracer
+                )
                 r = self.reports[-1]
                 r.gather_fast = dev_ledger.get("gather_fast", 0)
                 r.gather_fallbacks = dev_ledger.get("gather_fallbacks", 0)

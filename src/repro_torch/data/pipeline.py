@@ -12,8 +12,14 @@ Every batch is one *scan* through the differential cache, so:
 The prefetcher is a daemon thread running ``prefetch_depth`` steps ahead
 (host-side scan/assembly overlapped with device compute).
 
+On the scan executor's tracer, each batch built is a ``data.batch`` span
+(attribute ``step``; the scan's spans nest under it) and each wait of the
+consumer for its next batch a ``data.wait`` span: the queue's ``get``, or
+the whole build when nothing is prefetched.
+
 The port of ``repro.data.pipeline``: ``TokenBatchPipeline`` is the
-reference's, line for line (numpy over ``ScanExecutor``).  ``shard_batch``
+reference's, line for line (numpy over ``ScanExecutor``), with the two
+spans above.  ``shard_batch``
 places a host batch on one device; its mesh form is
 ``dist.sharding.distribute_tree`` with the batch dims' logical axes.
 """
@@ -81,6 +87,10 @@ class TokenBatchPipeline:
     # ------------------------------------------------------------ pure fetch
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
         """Deterministic batch for a global step (epoch-wrapping window)."""
+        with self.scans.tracer.span("data.batch", step=step):
+            return self._batch_at(step)
+
+    def _batch_at(self, step: int) -> Dict[str, np.ndarray]:
         idx = step % self.steps_per_epoch
         lo = idx * self.tokens_per_step
         hi = lo + self.tokens_per_step
@@ -111,7 +121,8 @@ class TokenBatchPipeline:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.prefetch_depth <= 0:
             while True:
-                b = self.batch_at(self.step)
+                with self.scans.tracer.span("data.wait"):
+                    b = self.batch_at(self.step)
                 self.step += 1
                 yield b
         else:
@@ -138,7 +149,8 @@ class TokenBatchPipeline:
         self._thread, self._q, self._stop = t, q, stop
         try:
             while True:
-                tag, payload = q.get()
+                with self.scans.tracer.span("data.wait"):
+                    tag, payload = q.get()
                 if tag == "error":
                     raise payload
                 assert tag == self.step, f"prefetch out of order: {tag} != {self.step}"

@@ -247,6 +247,10 @@ class Workspace:
             self.device = getattr(self.model_store, "device", None) or getattr(
                 self.scans.cache, "device", None
             )
+        if self.device is not None:
+            # the tier's spans (its uploads, the UNIONs that replicate a
+            # merge) nest in this workspace's trace, not the process's
+            self.device.adopt_obs(None, self.tracer)
         # torch-runtime nodes run where the tier pins; without a tier, on
         # ``torch_device`` — the CUDA card unless the caller asks for the CPU
         # (no card raises here rather than carrying on on the CPU)
@@ -283,7 +287,29 @@ class Workspace:
         execution-time choice, NOT part of node signatures: two tenants
         running the same DAG under different pins share cache elements
         wherever their snapshots' fragments agree (validity is re-checked
-        per run through fragment pins)."""
+        per run through fragment pins).
+
+        With an enabled tracer the ``run`` span covers the whole call
+        (DAG, plan, scope check, nodes, roll-up) and records its store
+        ``gets``; each ``node`` span records its own ``gets`` and
+        ``bytes_read`` from the thread's store ledger."""
+        with self.tracer.span("run", tenant=self.tenant or "") as run_sp:
+            if not self.tracer.enabled:
+                return self._run(project, verbose, snapshot_pins, run_sp)
+            ledger = self.store.thread_stats()
+            before = ledger.snapshot()
+            result = self._run(project, verbose, snapshot_pins, run_sp)
+            run_sp.attrs["gets"] = ledger.delta(before).get_requests
+            return result
+
+    def _run(
+        self,
+        project: Project,
+        verbose: bool,
+        snapshot_pins: Optional[Dict[str, str]],
+        run_sp,
+    ) -> RunResult:
+        traced = self.tracer.enabled
         dag = build_dag(project, strict=self.strict_contracts)
         sort_keys = {
             t: self.catalog.table(t).sort_key
@@ -292,6 +318,7 @@ class Workspace:
             for t in [ref.name]
         }
         plan = compile_plan(dag, sort_keys)
+        run_sp.attrs["nodes"] = len(plan.steps)
         if self.enforce_scopes:
             self._enforce_scopes(dag, plan, sort_keys)
         if verbose:
@@ -323,38 +350,40 @@ class Workspace:
         leaf_snapshots: Dict[Tuple[str, Optional[str]], Snapshot] = {}
         pins = snapshot_pins or {}
         expl = self.explainer.begin_run(tenant=self.tenant)
-        with self.tracer.span(
-            "run", tenant=self.tenant or "", nodes=len(plan.steps)
-        ):
-            for step in plan.steps:
-                fn = dag.project[step.model].fn
-                with self.tracer.span(
-                    "node", model=step.model, incremental=step.incremental
-                ):
-                    if step.incremental in ("rowwise", "keyed"):
-                        out, stats = self._run_incremental(
-                            step, plan, fn, results, leaf_snapshots, pins, expl
-                        )
-                    else:
-                        out, stats = self._run_full(
-                            step, plan, fn, results, pins, expl
-                        )
-                    results[step.model] = out
-                    node_stats[step.model] = stats
-                    if step.materialize:
-                        # the leaf snapshot this run's rows were derived from
-                        # is the publication's validity anchor (see
-                        # _materialize); the single-leaf provenance property
-                        # cannot describe a join, so multi-leaf nodes
-                        # republish in full
-                        leaf_snap = (
-                            self._leaf_snapshot(step, leaf_snapshots, pins)
-                            if step.incremental in ("rowwise", "keyed")
-                            and len(step.leaf_pairs) == 1
-                            else None
-                        )
-                        with self.tracer.span("publish", model=step.model):
-                            self._materialize(step, out, leaf_snap)
+        for step in plan.steps:
+            fn = dag.project[step.model].fn
+            with self.tracer.span(
+                "node", model=step.model, incremental=step.incremental
+            ) as node_sp:
+                node_before = ledger.snapshot() if traced else None
+                if step.incremental in ("rowwise", "keyed"):
+                    out, stats = self._run_incremental(
+                        step, plan, fn, results, leaf_snapshots, pins, expl
+                    )
+                else:
+                    out, stats = self._run_full(
+                        step, plan, fn, results, pins, expl
+                    )
+                results[step.model] = out
+                node_stats[step.model] = stats
+                if step.materialize:
+                    # the leaf snapshot this run's rows were derived from
+                    # is the publication's validity anchor (see
+                    # _materialize); the single-leaf provenance property
+                    # cannot describe a join, so multi-leaf nodes
+                    # republish in full
+                    leaf_snap = (
+                        self._leaf_snapshot(step, leaf_snapshots, pins)
+                        if step.incremental in ("rowwise", "keyed")
+                        and len(step.leaf_pairs) == 1
+                        else None
+                    )
+                    with self.tracer.span("publish", model=step.model):
+                        self._materialize(step, out, leaf_snap)
+                if traced:
+                    d = ledger.delta(node_before)
+                    node_sp.attrs["gets"] = d.get_requests
+                    node_sp.attrs["bytes_read"] = d.bytes_read
         self.explainer.finish_run(expl)
 
         delta = ledger.delta(before)
@@ -504,7 +533,9 @@ class Workspace:
                 kwargs[arg] = results[ref]
             rows += kwargs[arg].num_rows
         dev_ledger: Dict[str, int] = {}
-        out = _invoke(fn, step.runtime, kwargs, self.torch_device, dev_ledger)
+        out = _invoke(
+            fn, step.runtime, kwargs, self.torch_device, dev_ledger, self.tracer
+        )
         if expl.enabled:
             expl.record(
                 Decision(
@@ -643,7 +674,7 @@ class Workspace:
             kwargs = self._residual_inputs(
                 step, plan, results, IntervalSet.empty_set(), snapshots, expl
             )
-            out = _invoke(fn, step.runtime, kwargs, self.torch_device)
+            out = _invoke(fn, step.runtime, kwargs, self.torch_device, tracer=self.tracer)
             return self._windowed_output(step, kwargs, out), {
                 "fresh_rows": 0,
                 "cached_rows": 0,
@@ -800,7 +831,8 @@ class Workspace:
                         else:
                             fresh_rows = total_in
                             out = _invoke(
-                                fn, step.runtime, kwargs, self.torch_device, dev_ledger
+                                fn, step.runtime, kwargs, self.torch_device,
+                                dev_ledger, self.tracer,
                             )
                             fresh = self._windowed_output(step, kwargs, out)
                         res_sp.attrs["rows"] = fresh_rows
@@ -914,6 +946,7 @@ class Workspace:
                     [(prov, lo, hi) for _key, prov, lo, hi in dev_runs],
                     list(out_tbl.column_names),
                     ledger=dev_ledger,
+                    tracer=self.tracer,
                 )
                 out_tbl = DeviceTable(out_tbl, arrays)
         stats = {
@@ -1234,7 +1267,12 @@ def _invoke(
     kwargs: Dict[str, Any],
     device: torch.device,
     ledger: Optional[Dict[str, int]] = None,
+    tracer: Optional[Tracer] = None,
 ) -> Table:
+    """Run a user fn on its inputs.  A torch fn's outputs come back to the
+    host; where one is on the card and ``tracer`` is enabled, the wait for
+    the fn's kernels is a ``device.sync`` span and the copies that follow a
+    ``device.d2h`` span with their ``bytes``."""
     if runtime == "numpy":
         prepared = {
             k: (v.combine() if isinstance(v, ChunkedTable) else v)
@@ -1273,18 +1311,37 @@ def _invoke(
         out = fn(**prepared)
         if not isinstance(out, dict):
             raise TypeError("torch models must return {column: torch.Tensor}")
-        host_out = {}
-        for k, v in out.items():
-            # a copy on the host: the output must not alias a tensor the fn
-            # (or its caller) can still write to
-            if isinstance(v, torch.Tensor):
-                arr = v.detach().to("cpu", copy=True).numpy()
-            else:
-                arr = np.asarray(v)
-            _count("bytes_d2h", int(arr.nbytes))
-            host_out[k] = arr
+        card = None
+        if tracer is not None and tracer.enabled:
+            card = next(
+                (v.device for v in out.values() if isinstance(v, torch.Tensor) and v.is_cuda),
+                None,
+            )
+        if card is None:
+            return Table(_to_host(out, _count))
+        # the copies below wait for the fn's kernels anyway: waiting first
+        # splits that wait from the copies and adds no time
+        with tracer.span("device.sync"):
+            torch.cuda.current_stream(card).synchronize()
+        with tracer.span("device.d2h") as sp:
+            host_out = _to_host(out, _count)
+            sp.attrs["bytes"] = sum(int(a.nbytes) for a in host_out.values())
         return Table(host_out)
     raise ValueError(f"unknown runtime {runtime!r}")
+
+
+def _to_host(out: Dict[str, Any], count: Callable[[str, int], None]) -> Dict[str, np.ndarray]:
+    host_out = {}
+    for k, v in out.items():
+        # a copy on the host: the output must not alias a tensor the fn
+        # (or its caller) can still write to
+        if isinstance(v, torch.Tensor):
+            arr = v.detach().to("cpu", copy=True).numpy()
+        else:
+            arr = np.asarray(v)
+        count("bytes_d2h", int(arr.nbytes))
+        host_out[k] = arr
+    return host_out
 
 
 def run_project(workspace: Workspace, project: Project, **kw) -> RunResult:
