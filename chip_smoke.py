@@ -21,7 +21,10 @@
    the page.  ``flash_attention`` is held at zamba2-1.2b's, granite-3-2b's
    (4 query heads a KV head), mixtral-8x22b's (6 a KV head, head dim 128, a
    4096-position window), phi3-mini-3.8b's (head dim 96) and
-   nemotron-4-340b's heads (12 a KV head, head dim 192) and ``mamba2_ssd``
+   nemotron-4-340b's heads (12 a KV head, head dim 192), its backward
+   (``flash_attention_bwd``) at granite-3-2b's heads and training length
+   against the plain f32 path, timed beside its bound, the plain version's
+   and SDPA's autograd backward, and ``mamba2_ssd``
    at zamba2's widths, in f32 (CUDA-core route) and bf16 (tensor-core
    route), at the reference's tolerances (SSD also against the sequential
    recurrence).  The tensor-core instructions (``HMMA``/``HGMMA``) of each
@@ -75,9 +78,10 @@
    ``ServeEngine(slots=2, max_context=8192)``, two greedy prompts of 5000
    and 6500 tokens past its window, 16 new tokens each, on a 4096-slot ring
    cache.
-8. Training path, with the model kernels' launch counts set to 0 before it
-   and still 0 after it (training takes the plain versions: the kernels
-   have no backward): (a) ``repro_torch.launch.train.main`` trains
+8. Training path, with the model kernels' launch counts set to 0 before it:
+   the bf16 steps train attention through ``flash_attention``'s forward
+   and backward kernels, the f32 step takes the plain path, and the SSD
+   (no backward) launches nothing: (a) ``repro_torch.launch.train.main`` trains
    granite-3-2b at its published size (bf16, AdamW with an f32 master, two
    microbatches, full remat) for 8 steps of 4 x 1024 tokens on a
    lakehouse corpus of two steps served by the differential cache: finite
@@ -290,19 +294,22 @@ TENSOR_CORE_KERNELS = ("flash_attention", "mamba2_ssd")
 
 
 def count_mma() -> Dict[str, Dict[str, int]]:
-    """The tensor-core instructions of each built library, from ``cuobjdump
-    -sass``: ``HMMA`` (mma.sync) and ``HGMMA`` (wgmma).  Raises when a
-    kernel of TENSOR_CORE_KERNELS has none."""
+    """The tensor-core instructions of each kernel's built libraries (every
+    variant summed), from ``cuobjdump -sass``: ``HMMA`` (mma.sync) and
+    ``HGMMA`` (wgmma).  Raises when a kernel of TENSOR_CORE_KERNELS has
+    none."""
     from repro_torch.kernels import _build
 
     counts = {}
-    for name in _build.SOURCES:
+    for name, variant in _build.libraries():
         sass = subprocess.run(
-            [_build.cuda_tool("cuobjdump"), "-sass", str(_build.target(name))],
+            [_build.cuda_tool("cuobjdump"), "-sass", str(_build.target(name, variant))],
             capture_output=True, text=True, check=True,
         ).stdout.splitlines()
-        counts[name] = {op: sum(f" {op}." in line or f" {op} " in line for line in sass) for op in ("HMMA", "HGMMA")}
-        print(f"{name}: {counts[name]['HMMA']} HMMA and {counts[name]['HGMMA']} HGMMA instructions in its SASS")
+        seen = {op: sum(f" {op}." in line or f" {op} " in line for line in sass) for op in ("HMMA", "HGMMA")}
+        counts[name] = {op: counts.get(name, {}).get(op, 0) + n for op, n in seen.items()}
+        label = name if variant is None else f"{name} (variant {variant})"
+        print(f"{label}: {seen['HMMA']} HMMA and {seen['HGMMA']} HGMMA instructions in its SASS")
     for name in TENSOR_CORE_KERNELS:
         if not (counts[name]["HMMA"] or counts[name]["HGMMA"]):
             raise AssertionError(f"{name}'s library holds no tensor-core instruction")
@@ -768,6 +775,81 @@ def check_flash_attention() -> dict:
         del q, k, v, got
     torch.cuda.empty_cache()
     return entry
+
+
+# granite-3-2b.pretrain's attention call: one microbatch, 1 sequence of 4096,
+# 32 query heads on 8 KV heads of width 64
+GRANITE_TRAIN_ATTENTION = (1, 4096, 32, 8, 64)
+
+
+def check_flash_attention_bwd() -> dict:
+    """The backward kernel at granite-3-2b's heads and training length
+    (``GRANITE_TRAIN_ATTENTION``, causal): dq, dk and dv against the plain
+    f32 path within twice the bf16 control's largest error (the bar of
+    ``tests/test_torch_flash_attention_grad.py``), then timed beside its
+    bound (the backward's five products over the causal pairs at the bf16
+    peak: Sᵀ recomputed, dPᵀ, dV, dK and dQ), the plain version's autograd
+    backward in bf16 and PyTorch's ``scaled_dot_product_attention``
+    backward (which the port never calls)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_call, flash_attention_call
+
+    B, S, H, KV, hd = GRANITE_TRAIN_ATTENTION
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, dout = (torch.randn((B, S, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                     for h in (H, KV, KV, H))
+    kw = dict(scale=hd**-0.5, causal=True, window=0)
+    out, lse = flash_attention_call(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_call(q, k, v, out, lse, dout, **kw)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, dout.float())
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = attention_ref(*leaves, **kw)
+    control = torch.autograd.grad(plain_out, leaves, dout, retain_graph=True)
+    err = lambda x, w: float((x.float() - w).abs().max() / w.abs().max())
+    bar = 2 * max(err(c, w) for c, w in zip(control, want))
+    errs = {name: err(g, w) for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+    print(f"flash_attention_bwd vs the plain f32 path (B {B}, S {S}, H {H}, KV {KV}, hd {hd}, causal): "
+          f"largest error over the largest gradient {', '.join(f'{n} {e:.3e}' for n, e in errs.items())}; "
+          f"bf16 control {', '.join(f'{n} {err(c, w):.3e}' for n, c, w in zip(('dq', 'dk', 'dv'), control, want))}; "
+          f"bar {bar:.3e} {'ok' if max(errs.values()) <= bar else 'FAIL'}")
+    if max(errs.values()) > bar or not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError("flash_attention_bwd: outside the bar")
+    del want, got
+    ms = _time_ms(lambda: flash_attention_bwd_call(q, k, v, out, lse, dout, **kw))
+    seen, device_ms = _device_kernels(lambda: flash_attention_bwd_call(q, k, v, out, lse, dout, **kw))
+    plain_ms = _time_ms(lambda: torch.autograd.grad(plain_out, leaves, dout, retain_graph=True), launches=3)
+    del plain_out, leaves, control
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    library_ms = _time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
+    fwd_flops, _ = _attention_work(S, H, KV, hd, 0)
+    flops = 2.5 * fwd_flops * B  # five products against the forward's two
+    nbytes = 2.0 * B * S * hd * (4 * H + 4 * KV) + 4.0 * B * H * S  # q k v o dO in, dq dk dv out; lse
+    bound_ms, bound_by = _bound_ms(flops, nbytes)
+    print(f"flash_attention_bwd bf16 granite-3-2b (B {B}, S {S}, H {H}, KV {KV}, hd {hd}): kernel {ms:.4f} ms "
+          f"(device time alone {f'{device_ms:.4f} ms over {seen} kernels' if seen else 'not measured'}), plain "
+          f"autograd {plain_ms:.4f} ms, scaled_dot_product_attention backward {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); {flops / ms / 1e9:.1f} TFLOP/s achieved")
+    del q, k, v, dout, out, lse, qt, kt, vt, lib_out
+    torch.cuda.empty_cache()
+    return {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "none: the TPU kernel has no backward",
+        "max_rel_err": max(errs.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library": "torch.autograd.grad through scaled_dot_product_attention (causal, GQA)",
+        "shape": f"q (B {B}, {S}, {H}, {hd}), k/v ({B}, {S}, {KV}, {hd}) bf16, causal",
+    }
 
 
 DEQUANT_PAGE = (ROWS, 8)  # one month of the events table as an 8-column int8 page
@@ -1673,6 +1755,7 @@ def print_profile(label: str, prof, wall: float, top_n: int = 6) -> None:
 # the device kernels of each port kernel's launch, by name
 PORT_KERNEL_NAMES = {
     "flash_attention": ("flash_attention_wgmma", "flash_attention_tc", "flash_attention_fwd"),
+    "flash_attention_bwd": ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"),
     "mamba2_ssd": ("ssd_states_", "ssd_pass_states", "ssd_outputs_"),
 }
 
@@ -2107,7 +2190,8 @@ def _launch_counts() -> Dict[str, int]:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
 
-    return {"flash_attention": fa_kernel.launches, "mamba2_ssd": ssd_kernel.launches}
+    return {"flash_attention": fa_kernel.launches, "flash_attention_bwd": fa_kernel.launches_bwd,
+            "mamba2_ssd": ssd_kernel.launches}
 
 
 def _zero_launch_counts() -> None:
@@ -2115,7 +2199,24 @@ def _zero_launch_counts() -> None:
     from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
 
     fa_kernel.launches = 0
+    fa_kernel.launches_bwd = 0
     ssd_kernel.launches = 0
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Training attention on its plain path whatever the inputs: for the
+    comparisons whose other side cannot take the kernel (a step under
+    sharding rules, on DTensors; the cost model's count of a step on fake
+    tensors), so both sides run the same attention."""
+    from repro_torch.models import layers
+
+    route = layers.trains_on_the_kernel
+    layers.trains_on_the_kernel = lambda q, k, v: False
+    try:
+        yield
+    finally:
+        layers.trains_on_the_kernel = route
 
 
 def launch_phase(workdir: str, args: List[str], device="cuda") -> Dict[str, float]:
@@ -2331,8 +2432,10 @@ def training_phase(workdir: str, *, args: List[str] = TRAIN_ARGS, cut=None, devi
     """The training path: part a through the launcher (``args``), parts b-d
     on ``cut`` (by default granite-3-2b at full width, depth cut to
     ``CUT_LAYERS``).  The model kernels' launch counts are set to 0 before
-    the phase and must still be 0 after it: training takes the plain
-    versions (the kernels have no backward)."""
+    the phase.  On the card the bf16 steps train attention through the
+    flash-attention kernel (its forward, again in each remat recomputation,
+    and its backward), the f32 step takes the plain path, and the SSD,
+    which has no backward, is never launched."""
     cut = cut or model_config(GRANITE, dtype="bfloat16", kernels=False, layers=CUT_LAYERS)
     _zero_launch_counts()
     t0 = time.perf_counter()
@@ -2345,10 +2448,12 @@ def training_phase(workdir: str, *, args: List[str] = TRAIN_ARGS, cut=None, devi
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     launches = _launch_counts()
-    if any(launches.values()):
-        raise AssertionError(f"training launched model kernels: {launches}")
+    trained = launches["flash_attention_bwd"] > 0 and launches["flash_attention"] >= launches["flash_attention_bwd"]
+    if launches["mamba2_ssd"] or trained != (torch.device(device).type == "cuda"):
+        raise AssertionError(f"training's kernel launches {launches}: bf16 attention through the kernel on the "
+                             f"card only, forward and backward, and no SSD")
     print(f"training phase: {time.perf_counter() - t0:.1f} s, kernel launches {launches}")
-    return out
+    return {**out, "launches": launches}
 
 
 # ------------------------------------------------------------- distributed
@@ -2552,7 +2657,8 @@ def sharded_step_phase(cfg, workdir: str, device="cuda", batch: int = 2, seq: in
         b = _corpus_pipe(workdir, cfg, batch, seq, 1).batch_at(0)
         step = make_train_step(api, opt)
         t = time.perf_counter()
-        plain, m_plain = step(plain, b)
+        with plain_attention():  # the sharded step's attention, which takes no kernel
+            plain, m_plain = step(plain, b)
         _sync(device)
         plain_s = time.perf_counter() - t
         with use_rules(rules), CommDebugMode() as comm:
@@ -2794,7 +2900,8 @@ def _cut_batch(cfg, batch: int, seq: int, device) -> Dict[str, torch.Tensor]:
 
 def cost_model_phase(cfg, device="cuda", batch: int = 2, seq: int = 128) -> Dict:
     """Part b: the dry-run's cost model and memory tracker held against a
-    real train step of ``cfg`` (kernels off, as in the dry-run).  The FLOPs
+    real train step of ``cfg`` (kernels off, as in the dry-run: the real
+    steps run under ``plain_attention``).  The FLOPs
     counted on the card must equal those counted on fake tensors of the
     same shapes exactly; on the card, the profiled device busy time must be
     at least the roofline bound of the counted FLOPs and bytes (share
@@ -2813,7 +2920,12 @@ def cost_model_phase(cfg, device="cuda", batch: int = 2, seq: int = 128) -> Dict
     from repro_torch.train.state import tree_leaves
 
     api, opt = get_model(cfg), _launcher_opt()
-    step = make_train_step(api, opt)
+    kernels_off = make_train_step(api, opt)
+
+    def step(*args):
+        with plain_attention():
+            return kernels_off(*args)
+
     on_card = torch.device(device).type == "cuda"
     shapes = {k: (v.shape, v.dtype) for k, v in _cut_batch(cfg, batch, seq, "cpu").items()}
     with FakeTensorMode():
@@ -3004,6 +3116,7 @@ def main(argv=None) -> int:
     gather = time_fragment_union(total, args.frag)
     dequant = check_dequant()
     attention = check_flash_attention()
+    attention_bwd = check_flash_attention_bwd()
     scan = check_mamba2_ssd()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3050,21 +3163,27 @@ def main(argv=None) -> int:
         ),
     }
     with tempfile.TemporaryDirectory() as tmp:
-        training_phase(tmp)
+        trained = training_phase(tmp)["launches"]
     with tempfile.TemporaryDirectory() as tmp:
         distributed_phase(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         dryrun_phase(tmp)
     attention["launches_by_run"] = {name: r["flash_attention"] for name, r in runs.items()}
     attention["launches_by_run"]["examples"] = examples["flash_attention"]
+    attention["launches_by_run"]["training"] = trained["flash_attention"]
     attention["launches"] = sum(attention["launches_by_run"].values())
+    attention_bwd["launches_by_run"] = {"training": trained["flash_attention_bwd"],
+                                        "examples": examples["flash_attention_bwd"]}
+    attention_bwd["launches"] = sum(attention_bwd["launches_by_run"].values())
     scan["launches_by_run"] = {ZAMBA2: runs[ZAMBA2]["mamba2_ssd"], "examples": examples["mamba2_ssd"]}
     scan["launches"] = sum(scan["launches_by_run"].values())
     for entry in (gather, dequant, attention, scan):
         entry["sass_mma"] = mma[entry["name"]]
+    attention_bwd["sass_mma"] = mma["flash_attention"]  # one library holds both
     attention["device_route"] = "bf16 on the tensor cores (wgmma, TMA loads), f32 on the CUDA cores"
+    attention_bwd["device_route"] = "bf16 on the tensor cores (wgmma, TMA loads)"
     scan["device_route"] = "bf16 on the tensor cores (mma.sync), f32 on the CUDA cores"
-    print(json.dumps({"kernels": [gather, dequant, attention, scan]}))
+    print(json.dumps({"kernels": [gather, dequant, attention, attention_bwd, scan]}))
     print(json.dumps({
         "ok": True,
         "device": {

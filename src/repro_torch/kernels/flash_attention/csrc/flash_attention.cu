@@ -49,6 +49,40 @@
 // - What limits it now: inside a warpgroup Q·Kᵀ, the softmax and P·V run
 //   one after the other, each product waited for; only other warpgroups on
 //   the SM overlap them.
+// - Called for autograd it also writes each row's log-sum-exp of the scaled
+//   scores, (B, H, S) in f32: one store in the epilogue, which holds the
+//   row max and sum already.  The output's arithmetic is unchanged.
+//
+// The backward (bf16 only; the TPU kernel has none, so it replaces nothing:
+// it lets training take the kernel).  Like the forward it is bound by
+// operations, 5 products against the forward's 2, so every product runs on
+// the tensor cores by wgmma with the operands by TMA, in FA2 form, and no
+// S x S tensor reaches device memory:
+// - `flash_attention_bwd_delta`: Δ = rowsum(dO ∘ O) in f32, a warp a row.
+// - `flash_attention_bwd_dkdv`: one block per (64-key tile, KV head,
+//   batch), one consumer warpgroup and one producer warp.  K and V are
+//   loaded once; the producer walks only the query tiles that reach the
+//   keys (causal, window), each tile the G query heads of the KV head
+//   folded as in the forward, Q and dO by TMA and the rows' lse and Δ by
+//   the producer's lanes, in a 2-stage ring.  Per tile, with the keys as
+//   the rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (both operands from shared
+//   memory), Pᵀ = exp2(Sᵀ·scale·log2e − lse·log2e), dSᵀ = Pᵀ ∘ (dPᵀ − Δ),
+//   then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ as bf16 register A
+//   fragments and dO and Q as stored (MN-major, as V in the forward).  dK
+//   and dV stay in f32 registers for the whole walk: no atomics, and the G
+//   heads of a KV head are summed in f32 before the one bf16 store.
+// - `flash_attention_bwd_dq`: the forward's grid and ring (one block per
+//   query tile, K/V tiles streamed), with Q and dO loaded once: S = Q·Kᵀ
+//   and dP = dO·Vᵀ again, dS as above, dQ += dS·K (K as stored).  Two
+//   kernels recompute S and dP (7 products, not 5) but every gradient is
+//   written once by one block: deterministic, no f32 scratch, no atomics.
+// - Masks are exact (causal, window, kpos < S, rows past the sequence and
+//   the head fold's unused rows) and applied only on tiles that cross an
+//   edge; a masked pair gets P = dS = 0 by a select, never by arithmetic on
+//   a masked score.  The fold's unused rows of Q and dO are zeroed once, so
+//   a garbage row never enters dK or dV.
+// - hd 128 and 192 hold dK and dV at 64 and 96 f32 registers a thread
+//   each; at hd 192 the compiler spills (the report `-Xptxas=-v` prints).
 //
 // f32 -> `flash_attention_fwd`, products on CUDA cores in f32.  The
 // reference's f32 bar (2e-5) takes neither bf16 nor TF32 products, and
@@ -87,7 +121,11 @@ struct Params {
   int S, H, KV, G, qb;
   int causal, window;
   float scale;
+  float* lse;     // (B, H, S) or null: the rows' log-sum-exp (bf16 route)
 };
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int shared_floats(int hd) {
   return kRows * (hd + 1)               // Q tile, padded rows
@@ -496,7 +534,7 @@ __global__ void __launch_bounds__(WgShape<HD, WG>::threads)
   float acc[HD / 2];
 #pragma unroll
   for (int n = 0; n < HD / 2; ++n) acc[n] = 0.f;
-  const float sl2 = p.scale * 1.4426950408889634f;
+  const float sl2 = p.scale * kLog2e;
 
   mbar_wait(qbar, 0);
   for (int it = 0; it < ntiles; ++it) {
@@ -595,6 +633,400 @@ __global__ void __launch_bounds__(WgShape<HD, WG>::threads)
     for (int n = 0; n < HD / 8; ++n)
       *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t4) =
           pack_bf16(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+    // m is in the log2 domain of the scaled scores: lse = (m + log2 l)·ln 2
+    if (p.lse != nullptr && t4 == 0)
+      p.lse[((long long)b * p.H + h) * p.S + qpos[i]] =
+          li == 0.f ? __int_as_float(0x7f800000) : (m[i] + log2f(li)) * kLn2;
+  }
+}
+
+// ------------------------------------------------------------ backward
+struct BwdParams {
+  const void* q;     // (B, S, H, hd) bf16
+  const void* k;     // (B, S, KV, hd)
+  const void* v;     // (B, S, KV, hd)
+  const void* o;     // (B, S, H, hd), the forward's output
+  const void* dout;  // (B, S, H, hd)
+  const float* lse;  // (B, H, S), the forward's
+  float* delta;      // (B, H, S), written by the pre-pass
+  void* dq;          // (B, S, H, hd)
+  void* dk;          // (B, S, KV, hd)
+  void* dv;          // (B, S, KV, hd)
+  int S, H, KV, G, qb;
+  int causal, window;
+  float scale;
+};
+
+// one 64-row query tile (G heads x qb positions) per step of either kernel;
+// one consumer warpgroup and one producer warp
+constexpr int kBwdThreads = 160;
+
+template <int HD>
+struct BwdShape {
+  static constexpr int NB = (HD + 63) / 64;
+  // K, V, then the ring of (Q, dO) tiles, then the ring's lse and Δ rows
+  static constexpr int dkdv_bytes = 1024 + (2 * NB + 2 * kWgStages * NB) * kSwizzleBlock +
+                                    kWgStages * 2 * kRows * 4 + (2 * kWgStages + 1) * 8;
+  // Q, dO, then the ring of (K, V) tiles
+  static constexpr int dq_bytes = 1024 + (2 * NB + 2 * kWgStages * NB) * kSwizzleBlock +
+                                  (2 * kWgStages + 1) * 8;
+};
+
+__device__ __forceinline__ bool attend_row(int qpos, int kpos, int S, int causal, int window) {
+  return qpos >= 0 && qpos < S && attend(qpos, kpos, S, causal, window);
+}
+
+// Δ = rowsum(dO ∘ O) in f32, one warp a (b, s, h) row; written (B, H, S)
+__global__ void __launch_bounds__(256) flash_attention_bwd_delta(BwdParams p, int hd, long long nrows) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= nrows) return;
+  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p.o) + row * hd);
+  const __nv_bfloat162* d2 =
+      reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(p.dout) + row * hd);
+  float acc = 0.f;
+  for (int e = lane; e < hd / 2; e += 32) {
+    const float2 a = __bfloat1622float2(o2[e]), d = __bfloat1622float2(d2[e]);
+    acc = fmaf(a.x, d.x, acc);
+    acc = fmaf(a.y, d.y, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = (int)(row % p.H);
+    const long long bs = row / p.H;
+    p.delta[((bs / p.S) * p.H + h) * p.S + bs % p.S] = acc;
+  }
+}
+
+// S = A·Bᵀ over the head width, both operands K-major 64-row tiles of NB
+// 128-byte swizzled blocks (as Q·Kᵀ in the forward)
+template <int HD>
+__device__ __forceinline__ void wgmma_rows(float (&d)[32], const unsigned char* a, const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int col = (kk & 3) * 32;
+    wgmma_ss_n64(d, sw128_desc(a + (kk >> 2) * kSwizzleBlock + col, 16, 1024),
+                 sw128_desc(b + (kk >> 2) * kSwizzleBlock + col, 16, 1024), kk > 0);
+  }
+}
+
+// a 64 x 64 f32 accumulator as bf16 register A fragments of a product
+// whose k is the accumulator's columns (its layout is the A layout)
+__device__ __forceinline__ void a_fragments(uint32_t (&f)[4][4], const float (&a)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    f[kk][0] = pack_bf16(a[8 * kk], a[8 * kk + 1]);
+    f[kk][1] = pack_bf16(a[8 * kk + 2], a[8 * kk + 3]);
+    f[kk][2] = pack_bf16(a[8 * kk + 4], a[8 * kk + 5]);
+    f[kk][3] = pack_bf16(a[8 * kk + 6], a[8 * kk + 7]);
+  }
+}
+
+// d += A·B, A as register fragments (k = 64), B a 64-row tile as stored,
+// (k, n) with n contiguous (MN-major, as V in the forward's P·V)
+template <int HD>
+__device__ __forceinline__ void wgmma_frag_b(float (&d)[HD / 2], const uint32_t (&f)[4][4], const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_pv<HD>(d, f[kk], sw128_desc(b + kk * 2048, kSwizzleBlock, 1024));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_attention_bwd_dkdv(BwdParams p, const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv) {
+  constexpr int NB = BwdShape<HD>::NB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = base;                                   // [NB][64 keys][128 B]
+  unsigned char* Vs = Ks + NB * kSwizzleBlock;                // [NB][64 keys][128 B]
+  unsigned char* Qs = Vs + NB * kSwizzleBlock;                // [stage][NB][64 rows][128 B]
+  unsigned char* dOs = Qs + kWgStages * NB * kSwizzleBlock;   // [stage][NB][64 rows][128 B]
+  float* rowv = reinterpret_cast<float*>(dOs + kWgStages * NB * kSwizzleBlock);  // [stage][lse·log2e, Δ][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rowv + kWgStages * 2 * kRows);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* kvbar = empty + kWgStages;
+
+  const int G = p.G, qb = p.qb, rows = G * qb;
+  const int kt = blockIdx.x * kKeyBlock;  // longest walk first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the query tiles that reach keys [kt, kmax]: q >= kt (causal), q < kmax + window
+  const int kmax = min(kt + kKeyBlock, p.S) - 1;
+  const int q_lo = p.causal ? kt : 0;
+  const int q_hi = p.window > 0 ? min(p.S, kmax + p.window) : p.S;
+  const int t_begin = q_lo / qb;
+  const int ntiles = max(0, (q_hi + qb - 1) / qb - t_begin);
+
+  // the fold's unused rows (G·qb < 64), which no TMA box writes: zeros
+  if (rows < kRows) {
+    const int pad = (kRows - rows) * 32;  // words a block
+    uint32_t* w = reinterpret_cast<uint32_t*>(Qs);
+    for (int e = tid; e < 2 * kWgStages * NB * pad; e += kBwdThreads)
+      w[(e / pad) * (kSwizzleBlock / 4) + rows * 32 + e % pad] = 0u;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane arrives (its lse and Δ stores)
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- producer warp
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * NB * kSwizzleBlock);
+      for (int j = 0; j < NB; ++j) {
+        tma_load_4d(Ks + j * kSwizzleBlock, &tk, kvbar, 64 * j, kvh, kt, b);
+        tma_load_4d(Vs + j * kSwizzleBlock, &tv, kvbar, 64 * j, kvh, kt, b);
+      }
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % kWgStages;
+      if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+      const int q0 = (t_begin + it) * qb;
+      for (int r = lane; r < kRows; r += 32) {
+        const int pos = q0 + r / G;
+        const bool ok = r < rows && pos < p.S;
+        const long long at = ((long long)b * p.H + kvh * G + r % G) * p.S + pos;
+        rowv[s * 2 * kRows + r] = ok ? p.lse[at] * kLog2e : 0.f;
+        rowv[s * 2 * kRows + kRows + r] = ok ? p.delta[at] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * NB * 128 * rows);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_4d(Qs + (s * NB + j) * kSwizzleBlock, &tq, &full[s], 64 * j, kvh * G, q0, b);
+          tma_load_4d(dOs + (s * NB + j) * kSwizzleBlock, &tdo, &full[s], 64 * j, kvh * G, q0, b);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: keys kt + warp·16 + g (+ 8) are its rows
+  const int g = lane >> 2, t4 = lane & 3;
+  const int krow = kt + warp * 16 + g;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int n = 0; n < HD / 2; ++n) dk[n] = dv[n] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+  const bool ragged = rows < kRows || kt + kKeyBlock > p.S;
+
+  mbar_wait(kvbar, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % kWgStages;
+    mbar_wait(&full[st], (it / kWgStages) & 1);
+    const unsigned char* qd = Qs + st * NB * kSwizzleBlock;
+    const unsigned char* dod = dOs + st * NB * kSwizzleBlock;
+    const float* lse2 = rowv + st * 2 * kRows;
+    const float* dl = lse2 + kRows;
+    const int q0 = (t_begin + it) * qb;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, issued together
+    float s[32], dp[32];
+#pragma unroll
+    for (int n = 0; n < 32; ++n) s[n] = dp[n] = 0.f;
+    wgmma_fence();
+    wgmma_rows<HD>(s, Ks, qd);
+    wgmma_rows<HD>(dp, Vs, dod);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // accumulator n-tile j: keys krow (s[4j], s[4j + 1]) and krow + 8
+    // (s[4j + 2], s[4j + 3]), query rows 8j + 2·t4 + {0, 1}
+    const int q_last = q0 + qb - 1;
+    const bool edge = ragged || q_last >= p.S || (p.causal && q0 < kt + kKeyBlock - 1) ||
+                      (p.window > 0 && q_last - p.window >= kt);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = 8 * j + 2 * t4 + c;
+        const float l2 = lse2[r], d = dl[r];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 4 * j + 2 * i + c;
+          const bool ok = !edge || (r < rows && attend_row(q0 + r / G, krow + 8 * i, p.S, p.causal, p.window));
+          const float pr = ok ? fast_exp2(s[e] * sl2 - l2) : 0.f;
+          dp[e] = ok ? pr * (dp[e] - d) : 0.f;
+          s[e] = pr;
+        }
+      }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q (the query rows are the products' k);
+    // both fragment sets packed before either product is issued
+    uint32_t pf[4][4], df[4][4];
+    a_fragments(pf, s);
+    a_fragments(df, dp);
+    wgmma_fence();
+    wgmma_frag_b<HD>(dv, pf, dod);
+    wgmma_frag_b<HD>(dk, df, qd);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = krow + 8 * i;
+    if (key >= p.S) continue;
+    const long long at = (((long long)b * p.S + key) * p.KV + kvh) * HD;
+    bf16* dko = static_cast<bf16*>(p.dk) + at;
+    bf16* dvo = static_cast<bf16*>(p.dv) + at;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dko + n * 8 + 2 * t4) =
+          pack_bf16(dk[4 * n + 2 * i] * p.scale, dk[4 * n + 2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvo + n * 8 + 2 * t4) = pack_bf16(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_attention_bwd_dq(BwdParams p, const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv) {
+  constexpr int NB = BwdShape<HD>::NB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = base;                                  // [NB][64 rows][128 B]
+  unsigned char* dOs = Qs + NB * kSwizzleBlock;              // [NB][64 rows][128 B]
+  unsigned char* Ks = dOs + NB * kSwizzleBlock;              // [stage][NB][64 keys][128 B]
+  unsigned char* Vs = Ks + kWgStages * NB * kSwizzleBlock;   // [stage][NB][64 keys][128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kWgStages * NB * kSwizzleBlock);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* qbar = empty + kWgStages;
+
+  const int G = p.G, rows = G * p.qb;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.qb;  // longest first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int q_last = min(q0 + p.qb, p.S) - 1;
+  int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  k_begin = k_begin / kKeyBlock * kKeyBlock;
+  const int k_end = p.causal ? q_last + 1 : p.S;
+  const int ntiles = (k_end - k_begin + kKeyBlock - 1) / kKeyBlock;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- producer: Q and dO once, then the reachable K/V tiles
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * NB * 128 * rows);
+      for (int j = 0; j < NB; ++j) {
+        tma_load_4d(Qs + j * kSwizzleBlock, &tq, qbar, 64 * j, kvh * G, q0, b);
+        tma_load_4d(dOs + j * kSwizzleBlock, &tdo, qbar, 64 * j, kvh * G, q0, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % kWgStages;
+        if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * NB * kSwizzleBlock);
+        const int kt = k_begin + it * kKeyBlock;
+        for (int j = 0; j < NB; ++j) {
+          tma_load_4d(Ks + (s * NB + j) * kSwizzleBlock, &tk, &full[s], 64 * j, kvh, kt, b);
+          tma_load_4d(Vs + (s * NB + j) * kSwizzleBlock, &tv, &full[s], 64 * j, kvh, kt, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: query rows warp·16 + g (+ 8) of the tile
+  const int g = lane >> 2, t4 = lane & 3;
+  int qpos[2];  // -1: a row past the sequence or the fold; never written
+  float l2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    qpos[i] = (r < rows && q0 + r / G < p.S) ? q0 + r / G : -1;
+    const long long at = ((long long)b * p.H + kvh * G + r % G) * p.S + qpos[i];
+    l2[i] = qpos[i] >= 0 ? p.lse[at] * kLog2e : 0.f;
+    dl[i] = qpos[i] >= 0 ? p.delta[at] : 0.f;
+  }
+  float dq[HD / 2];
+#pragma unroll
+  for (int n = 0; n < HD / 2; ++n) dq[n] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+
+  mbar_wait(qbar, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % kWgStages;
+    mbar_wait(&full[st], (it / kWgStages) & 1);
+    const unsigned char* kd = Ks + st * NB * kSwizzleBlock;
+    const unsigned char* vd = Vs + st * NB * kSwizzleBlock;
+    const int kt = k_begin + it * kKeyBlock;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ, issued together
+    float s[32], dp[32];
+#pragma unroll
+    for (int n = 0; n < 32; ++n) s[n] = dp[n] = 0.f;
+    wgmma_fence();
+    wgmma_rows<HD>(s, Qs, kd);
+    wgmma_rows<HD>(dp, dOs, vd);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // as in the forward: rows g (+ 8), keys 8j + 2·t4 + {0, 1}
+    const bool edge = kt + kKeyBlock > p.S || (p.causal && kt + kKeyBlock - 1 > q0) ||
+                      (p.window > 0 && kt <= q_last - p.window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          const bool ok = !edge || attend_row(qpos[i], kt + 8 * j + 2 * t4 + c, p.S, p.causal, p.window);
+          const float pr = ok ? fast_exp2(s[e] * sl2 - l2[i]) : 0.f;
+          dp[e] = ok ? pr * (dp[e] - dl[i]) : 0.f;
+        }
+
+    // dQ += dS·K (the keys are the product's k; K as stored)
+    uint32_t df[4][4];
+    a_fragments(df, dp);
+    wgmma_fence();
+    wgmma_frag_b<HD>(dq, df, kd);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qpos[i] < 0) continue;
+    const int h = kvh * G + (warp * 16 + g + 8 * i) % G;
+    bf16* out = static_cast<bf16*>(p.dq) + (((long long)b * p.S + qpos[i]) * p.H + h) * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + n * 8 + 2 * t4) =
+          pack_bf16(dq[4 * n + 2 * i] * p.scale, dq[4 * n + 2 * i + 1] * p.scale);
   }
 }
 
@@ -656,6 +1088,34 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   return p.G * p.qb > kRows ? launch_wgmma<HD, 2>(p, B, stream) : launch_wgmma<HD, 1>(p, B, stream);
 }
 
+// the pre-pass, then dK/dV (a block a key tile) and dQ (a block a query tile)
+template <int HD>
+int launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  using Shape = BwdShape<HD>;
+  static_assert(Shape::dkdv_bytes <= kMaxSharedBytes && Shape::dq_bytes <= kMaxSharedBytes, "shared memory");
+  const long long nrows = (long long)B * p.S * p.H;
+  flash_attention_bwd_delta<<<(unsigned)((nrows + 7) / 8), 256, 0, stream>>>(p, HD, nrows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!make_map(&tq, p.q, B, p.S, p.H, HD, p.G, p.qb) || !make_map(&tdo, p.dout, B, p.S, p.H, HD, p.G, p.qb) ||
+      !make_map(&tk, p.k, B, p.S, p.KV, HD, 1, 64) || !make_map(&tv, p.v, B, p.S, p.KV, HD, 1, 64))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Shape::dkdv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Shape::dq_bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dkdv<HD><<<dim3((p.S + kKeyBlock - 1) / kKeyBlock, p.KV, B), kBwdThreads,
+                                 Shape::dkdv_bytes, stream>>>(p, tq, tdo, tk, tv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_bwd_dq<HD><<<dim3((p.S + p.qb - 1) / p.qb, p.KV, B), kBwdThreads, Shape::dq_bytes, stream>>>(
+      p, tq, tdo, tk, tv);
+  return (int)cudaGetLastError();
+}
+
 // ----------------------------------------------------------- launches
 template <int HD>
 int launch_f32(const Params& p, int B, cudaStream_t stream) {
@@ -669,16 +1129,39 @@ int launch_f32(const Params& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The library is built once per head width (-DFA_HEAD_DIM=<hd>, the
+// build's variants) and holds that width's kernels alone: nvcc then
+// compiles a sixth of the templates.
+#ifndef FA_HEAD_DIM
+#error "build with -DFA_HEAD_DIM=<head width>: one library a width"
+#endif
+template <int HD>
+constexpr bool built() {
+  return HD == FA_HEAD_DIM;
+}
+
 // bf16: the wgmma + TMA kernel; f32: the CUDA-core kernel
+template <bool TC, int HD>
+int launch_width(const Params& p, int B, cudaStream_t s) {
+  if constexpr (built<HD>()) return TC ? launch_wgmma<HD>(p, B, s) : launch_f32<HD>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int HD>
+int launch_bwd_width(const BwdParams& p, int B, cudaStream_t s) {
+  if constexpr (built<HD>()) return launch_bwd<HD>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <bool TC>
 int launch_hd(const Params& p, int hd, int B, cudaStream_t s) {
   switch (hd) {
-    case 16: return TC ? launch_wgmma<16>(p, B, s) : launch_f32<16>(p, B, s);
-    case 32: return TC ? launch_wgmma<32>(p, B, s) : launch_f32<32>(p, B, s);
-    case 64: return TC ? launch_wgmma<64>(p, B, s) : launch_f32<64>(p, B, s);
-    case 96: return TC ? launch_wgmma<96>(p, B, s) : launch_f32<96>(p, B, s);
-    case 128: return TC ? launch_wgmma<128>(p, B, s) : launch_f32<128>(p, B, s);
-    case 192: return TC ? launch_wgmma<192>(p, B, s) : launch_f32<192>(p, B, s);
+    case 16: return launch_width<TC, 16>(p, B, s);
+    case 32: return launch_width<TC, 32>(p, B, s);
+    case 64: return launch_width<TC, 64>(p, B, s);
+    case 96: return launch_width<TC, 96>(p, B, s);
+    case 128: return launch_width<TC, 128>(p, B, s);
+    case 192: return launch_width<TC, 192>(p, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -686,20 +1169,46 @@ int launch_hd(const Params& p, int hd, int B, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v and
-// the output share it.  hd must be 16, 32, 64, 96, 128 or 192, G·qb at most
-// 64 rows (128 for bf16); bf16 pointers 16-byte aligned.
-extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                               int S, int H, int KV, int hd, int qb, int causal, int window,
+// the output share it.  hd must be the library's FA_HEAD_DIM (16, 32, 64,
+// 96, 128 or 192), G·qb at most 64 rows (128 for bf16); bf16 pointers
+// 16-byte aligned.  lse: null, or (B, H, S) f32 for the rows' log-sum-exp
+// (bf16 only).
+extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o, float* lse,
+                               int B, int S, int H, int KV, int hd, int qb, int causal, int window,
                                float scale, int dtype, void* stream) {
   // tiles of up to 128 query rows on the wgmma kernel (bf16), 64 on the f32 one
   const int max_rows = dtype == 1 ? 2 * kRows : kRows;
-  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || qb <= 0 || (H / KV) * qb > max_rows)
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || qb <= 0 || (H / KV) * qb > max_rows ||
+      (lse != nullptr && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, S, H, KV, H / KV, qb, causal, window, scale};
+  Params p{q, k, v, o, S, H, KV, H / KV, qb, causal, window, scale, lse};
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0: return launch_hd<false>(p, hd, B, s);
     case 1: return launch_hd<true>(p, hd, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward, bf16 only: dq (B, S, H, hd), dk and dv (B, S, KV, hd) from
+// the forward's inputs, output o and lse, and the output's gradient dout;
+// delta is (B, H, S) f32 scratch.  qb·(H / KV) at most 64 rows; pointers
+// 16-byte aligned.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const float* lse, const void* dout, float* delta, void* dq, void* dk,
+                                   void* dv, int B, int S, int H, int KV, int hd, int qb, int causal,
+                                   int window, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || qb <= 0 || (H / KV) * qb > kRows)
+    return (int)cudaErrorInvalidValue;
+  BwdParams p{q, k, v, o, dout, lse, delta, dq, dk, dv, S, H, KV, H / KV, qb, causal, window, scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (hd) {
+    case 16: return launch_bwd_width<16>(p, B, s);
+    case 32: return launch_bwd_width<32>(p, B, s);
+    case 64: return launch_bwd_width<64>(p, B, s);
+    case 96: return launch_bwd_width<96>(p, B, s);
+    case 128: return launch_bwd_width<128>(p, B, s);
+    case 192: return launch_bwd_width<192>(p, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,11 +1,13 @@
 """Public wrapper: model-layout ``(B, S, H, hd)`` GQA flash attention.
 
-A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA tensor
-launches the kernel or raises.  The kernel has no backward, so under
-autograd (grad mode on and an input that requires grad) the wrapper raises
-on every device, as the reference cannot differentiate its Pallas kernel.
-A DTensor (a model run under sharding rules) raises too: the reference
-shards only with its kernels off.
+A CPU tensor takes the plain version (``ref.attention_ref``), which autograd
+differentiates; a CUDA tensor launches the kernel or raises.  Under autograd
+(grad mode on and an input that requires grad) a bf16 CUDA call goes through
+``FlashAttentionFunction``, whose forward and backward are both the
+hand-written kernels (the reference cannot differentiate its Pallas kernel:
+this widens the port); an f32 CUDA call raises there, as the CUDA-core
+route has no backward.  A DTensor (a model run under sharding rules)
+raises: the reference shards only with its kernels off.
 The kernel reads the model layout directly and masks the ragged tail
 itself, so the reference wrapper's head moves and padding have no
 counterpart.  The kernel's tiles are fixed by the head group and the dtype
@@ -21,10 +23,31 @@ from typing import Optional
 import torch
 
 from repro_torch.dist.sharding import is_dtensor
-from repro_torch.kernels.flash_attention.kernel import flash_attention_call
+from repro_torch.kernels.flash_attention.kernel import ROUTES, flash_attention_bwd_call, flash_attention_call
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["FlashAttentionFunction", "flash_attention"]
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Full-sequence attention whose forward and backward are the bf16
+    Hopper kernels: the forward keeps each row's log-sum-exp beside its
+    output, and the backward recomputes the scores tile by tile from them
+    (no S x S tensor is stored).  Takes contiguous bf16 CUDA tensors in the
+    model layout; returns the output in q's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool, window: int):
+        out, lse = flash_attention_call(q, k, v, scale=scale, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(scale=scale, causal=causal, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_call(q, k, v, out, lse, dout.contiguous(), **ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -49,14 +72,18 @@ def flash_attention(
             "flash_attention takes no DTensor: the kernel runs on one card's whole tensors; under "
             "sharding rules run the model with use_pallas_kernels=False, as the reference does"
         )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention has no backward kernel; the reference cannot differentiate its "
-            "Pallas kernel either: train with use_pallas_kernels=False"
-        )
     scale = hd**-0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if ROUTES.get(q.dtype) != "tensor_core":
+            raise RuntimeError(
+                f"flash_attention has no backward kernel for {q.dtype} (the CUDA-core route): "
+                "train in bf16, or with use_pallas_kernels=False"
+            )
+        return FlashAttentionFunction.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale, bool(causal), int(window)
+        )
     return flash_attention_call(
         q.contiguous(), k.contiguous(), v.contiguous(),
         scale=scale, causal=causal, window=window,

@@ -11,12 +11,14 @@ materialised tensor carries the reference's logical sharding constraint
 
 Attention on the full sequence takes the flash-attention kernel when
 ``cfg.use_pallas_kernels`` is set (``kernels.flash_attention``: the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor) and otherwise
-the reference's XLA formulations: blocked-local for a sliding window shorter
+kernel on a CUDA tensor, its plain version on a CPU tensor), and, whatever
+the flag, when autograd records a call whose inputs the kernel's backward
+takes (``trains_on_the_kernel``: whole bf16 CUDA tensors); otherwise the
+reference's XLA formulations: blocked-local for a sliding window shorter
 than the sequence, blocked online-softmax above 8192 positions, and
-materialised scores below.  Every function is differentiable by autograd
-except the kernel paths, which have no backward (the reference defines none
-for its Pallas kernels either).  ``remat`` maps ``cfg.remat`` onto
+materialised scores below.  Every function is differentiable by autograd;
+the kernel's gradient is its own backward kernel, as the reference defines
+none for its Pallas kernel.  ``remat`` maps ``cfg.remat`` onto
 ``torch.utils.checkpoint``, and ``cross_entropy`` is the reference's masked
 token-mean loss.
 """
@@ -39,6 +41,7 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
     "attention_train",
+    "trains_on_the_kernel",
     "attention_decode",
     "write_positions",
     "mlp_apply",
@@ -120,7 +123,7 @@ def attention_train(
     scale = hd**-0.5
     k_kv, v_kv = k, v
 
-    if cfg.use_pallas_kernels:
+    if cfg.use_pallas_kernels or trains_on_the_kernel(q, k, v):
         # the kernel folds the query heads of a KV head itself: no repeat
         from repro_torch.kernels.flash_attention import flash_attention
 
@@ -148,6 +151,24 @@ def attention_train(
     if return_kv:
         return proj, k_kv, v_kv
     return proj
+
+
+def trains_on_the_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether an attention call goes through the flash-attention kernel's
+    autograd Function: autograd is recording it (grad mode on, an input
+    that requires grad) and the inputs are what the backward kernel takes:
+    whole CUDA tensors (not DTensors or fake tensors) in bf16, a head width
+    in ``HEAD_DIMS`` and at most ``MAX_GROUP`` query heads a KV head.  It
+    reads the inputs alone, so a remat recomputation takes the path its
+    forward took; the CPU, sharded, f32 and no-grad calls keep the plain
+    path, which stays the oracle."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return False
+    if not all(type(t) is torch.Tensor and t.is_cuda and t.dtype == torch.bfloat16 for t in (q, k, v)):
+        return False
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, MAX_GROUP
+
+    return q.shape[-1] in HEAD_DIMS and q.shape[2] // k.shape[2] <= MAX_GROUP
 
 
 def _blocked_causal_attention(

@@ -404,5 +404,6 @@ def test_examples_phase_runs_on_the_cpu(tmp_path):
     ran = set(out["walls"])
     assert ran >= set(EXAMPLES) - {"lint_pipeline"} | {"quickstart (process)"}
     assert ("lint_pipeline" in ran) == ANALYSIS_RUNS
-    assert out["launches"] == {"fragment_gather": 0, "dequant": 0, "flash_attention": 0, "mamba2_ssd": 0}
+    assert out["launches"] == {"fragment_gather": 0, "dequant": 0, "flash_attention": 0,
+                               "flash_attention_bwd": 0, "mamba2_ssd": 0}
     assert out["train"]["steps"] == 12 and out["train"]["tokens_per_s"] > 0

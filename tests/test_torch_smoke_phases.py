@@ -91,7 +91,7 @@ def test_training_phase_runs_on_the_cpu(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "epochs 2-4 read 0" in text and "profile step 8" in text
     assert "bitwise equal to the uninterrupted run" in text and "ratio 0.2" in text
-    assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text
+    assert "kernel launches {'flash_attention': 0, 'flash_attention_bwd': 0, 'mamba2_ssd': 0}" in text
 
 
 def test_distributed_phase_runs_on_the_cpu(tmp_path, capsys):
@@ -110,7 +110,7 @@ def test_distributed_phase_runs_on_the_cpu(tmp_path, capsys):
     assert "checkpoint step 12 restored, W (2, 2, 64, 64)" in text
     assert text.count("(bars held)") == 4 and "stash 2 slots" in text and "stash 6 slots" in text
     assert "0 collectives; checkpoint restored with shardings= onto the mesh" in text
-    assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text
+    assert "kernel launches {'flash_attention': 0, 'flash_attention_bwd': 0, 'mamba2_ssd': 0}" in text
 
 
 def test_dryrun_phase_runs_on_the_cpu(tmp_path, capsys):
@@ -127,7 +127,7 @@ def test_dryrun_phase_runs_on_the_cpu(tmp_path, capsys):
     assert out["cost"]["flops"] == out["cost"]["flops_fake"] > 0
     text = capsys.readouterr().out
     assert "forward and backward ran" in text and "not measured" in text
-    assert "kernel launches {'flash_attention': 0, 'mamba2_ssd': 0}" in text
+    assert "kernel launches {'flash_attention': 0, 'flash_attention_bwd': 0, 'mamba2_ssd': 0}" in text
 
 
 def test_sharded_mesh_phase_runs_on_the_cpu(tmp_path, capsys):

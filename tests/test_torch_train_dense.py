@@ -2,7 +2,8 @@
 transformer families (dense, MoE, audio, VLM): the loss, the optimizers and
 their schedule, one train step of every reduced transformer arch (granite
 with the published ``microbatches=2``), rematerialisation, five-step loss
-trajectories, and the kernel wrappers' refusal to run under autograd.
+trajectories, the SSD kernel wrapper's refusal to run under autograd, and
+the attention wrapper's gradients on the CPU.
 
 Inputs and weights come from numpy seeds and the reference's own init
 carried over by ``state_from_reference``.  The bar is the reference's
@@ -203,29 +204,68 @@ def test_five_step_trajectory_matches_the_reference(kind):
 
 # ------------------------------------------------------- kernels and grads
 def test_kernel_wrappers_raise_under_autograd():
-    """No backward kernel exists (the reference cannot differentiate its
-    Pallas kernels either), so the wrappers refuse an input that requires
-    grad while grad mode is on, on the CPU as on the card; serving (no
-    grad) is unaffected."""
-    from repro_torch.kernels import flash_attention, ssd
+    """The SSD kernel has no backward (the reference cannot differentiate
+    its Pallas kernels either), so its wrapper refuses an input that
+    requires grad while grad mode is on, on the CPU as on the card; serving
+    (no grad) is unaffected.  Attention differentiates
+    (``test_flash_attention_wrapper_differentiates_like_the_plain_form``)."""
+    from repro_torch.kernels import ssd
 
-    q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        flash_attention(q, q.detach(), q.detach())
-    with torch.no_grad():
-        assert flash_attention(q, q, q).shape == q.shape
     x = torch.randn(1, 8, 2, 4, requires_grad=True)
     bm = torch.randn(1, 8, 3)
     with pytest.raises(RuntimeError, match="no backward kernel"):
         ssd(x, torch.ones(1, 8, 2), -torch.ones(2), bm, bm)
     with torch.inference_mode():
         assert ssd(x, torch.ones(1, 8, 2), -torch.ones(2), bm, bm)[0].shape == x.shape
-    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), use_pallas_kernels=True)
+    cfg = dataclasses.replace(get_config("zamba2-1.2b").reduced(), use_pallas_kernels=True)
     api = get_model(cfg)
     params = api.init_params(torch.Generator().manual_seed(0), "cpu")
     batch = {k: torch.from_numpy(v) for k, v in token_batch(cfg, 2, 16, seed=0).items()}
     with pytest.raises(RuntimeError, match="no backward kernel"):
         value_and_grad(api, params, batch)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_attention_wrapper_differentiates_like_the_plain_form(window):
+    """The attention wrapper under autograd: on the CPU it takes its plain
+    version, whose gradients equal those of the materialised softmax
+    written out here (grouped heads repeated), and serving (no grad) is
+    unaffected."""
+    from repro_torch.kernels import flash_attention
+
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 24, 4, 16)).astype(np.float32)).requires_grad_()
+    k, v = (torch.from_numpy(rng.standard_normal((2, 24, 2, 16)).astype(np.float32)).requires_grad_()
+            for _ in range(2))
+    out = flash_attention(q, k, v, window=window)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad((out * out).sum(), (q, k, v))
+    kr, vr = (torch.repeat_interleave(t, 2, dim=2) for t in (k, v))
+    scores = torch.einsum("bshk,bthk->bhst", q, kr) * 16**-0.5
+    pos = torch.arange(24)
+    mask = (pos[None, :] <= pos[:, None]) & ((pos[None, :] > pos[:, None] - window) if window else True)
+    plain = torch.einsum("bhst,bthk->bshk", torch.softmax(scores.masked_fill(~mask, -1e30), -1), vr)
+    for a, b in zip(grads, torch.autograd.grad((plain * plain).sum(), (q, k, v))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+    with torch.no_grad():
+        assert flash_attention(q, k, v, window=window).grad_fn is None
+
+
+@pytest.mark.parametrize("arch_id", ["granite-3-2b", "mixtral-8x22b"])
+def test_kernels_on_model_differentiates_like_the_plain_model(arch_id):
+    """A transformer with ``use_pallas_kernels`` trains on the CPU: its
+    attention takes the wrapper's plain version, and the loss and gradients
+    equal the plain model's (mixtral's over twice its sliding window)."""
+    cfg = get_config(arch_id).reduced()
+    params = get_model(cfg).init_params(torch.Generator().manual_seed(0), "cpu")
+    seq = 2 * cfg.sliding_window or 16  # mixtral: the plain path's blocked-local form
+    batch = {k: torch.from_numpy(v) for k, v in token_batch(cfg, 2, seq, seed=0).items()}
+    plain = value_and_grad(get_model(cfg), params, batch)
+    on = value_and_grad(get_model(dataclasses.replace(cfg, use_pallas_kernels=True)), params, batch)
+    # the file's one-for-one bar: the blocked-local form sums in another order
+    np.testing.assert_allclose(float(on[0]), float(plain[0]), rtol=1e-6)
+    for a, b in zip(on[2], plain[2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
 
 
 @pytest.fixture
@@ -236,22 +276,26 @@ def card():
 
 @pytest.mark.cuda
 def test_kernel_wrappers_raise_under_autograd_on_the_card(card):
-    """On the card the wrappers used to fill a fresh tensor through ctypes
-    and return it without a ``grad_fn``, cutting every gradient; now they
-    raise before any launch."""
+    """On the card the SSD wrapper used to fill a fresh tensor through
+    ctypes and return it without a ``grad_fn``, cutting every gradient; now
+    it raises before any launch.  The attention wrapper differentiates
+    through its backward kernel (``tests/test_torch_flash_attention_grad.py``
+    holds its gradients)."""
     from repro_torch.kernels import flash_attention, ssd
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
 
-    before = (fa_kernel.launches, ssd_kernel.launches)
-    q = torch.randn(1, 64, 4, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        flash_attention(q, q.detach(), q.detach())
+    before = ssd_kernel.launches
     x = torch.randn(1, 64, 2, 64, device="cuda", requires_grad=True)
     bm = torch.randn(1, 64, 64, device="cuda")
     with pytest.raises(RuntimeError, match="no backward kernel"):
         ssd(x, torch.ones(1, 64, 2, device="cuda"), -torch.ones(2, device="cuda"), bm, bm)
-    assert (fa_kernel.launches, ssd_kernel.launches) == before
+    assert ssd_kernel.launches == before
+    q = torch.randn(1, 64, 4, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    bwd = fa_kernel.launches_bwd
+    out = flash_attention(q, q.detach(), q.detach())
+    out.float().sum().backward()
+    assert q.grad is not None and fa_kernel.launches_bwd == bwd + 1
 
 
 def test_blocked_causal_attention_differentiates_like_the_plain_form():
